@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (unigen_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+  1. device: CUDA is required; prints the card's name and power limit.
+  2. build: compiles both CUDA kernels from unigen_tpu_torch/csrc (one nvcc
+     per source, started together) into build/kernels.
+  3. kernels: each kernel at the main path's shapes against its plain
+     PyTorch version on the card (attention bf16 within atol=rtol=1e-2, W4A8
+     bit-identical), with CUDA-event medians of the kernel, the plain version
+     and a library yardstick that the port never calls, beside the bound.
+  4. slice: the full-width W4A8 UniGen-FLUX (flux_full, 512^2, 4 Euler steps)
+     serves four b=1 requests through MicroBatchServer(batch_size=2); the
+     launch counters must show every attention and every W4A8 linear of
+     those forwards went through the kernels; in one more forward every
+     kernel call is also held against its plain version on the path's own
+     inputs, and that forward and one with the plain versions on the same
+     inputs agree within 3e-2 relative L2; a profiled forward gives the
+     device time by kernel.
+  5. one JSON line listing the kernels; the last line is the JSON result.
+It imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core peak
+HBM_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+ATTN_CASES = [            # (B*H split as B, H, Sq, Skv, identity K rows)
+    (1, 24, 1536, 1536, 0), (1, 24, 2048, 2048, 0), (1, 24, 2560, 2560, 0),
+    (1, 24, 1536, 2048, 512)]
+W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
+              (1536, 15360, 3072)]
+SEQ_TXT, HW = 512, 32     # 512^2 image -> 64^2 latents -> 32^2 = 1024 tokens
+STEPS, N_REQUESTS, BATCH = 4, 4, 2
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def bound(ops: float, peak: float, nbytes: float):
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+@contextlib.contextmanager
+def routed(attention, w4a8):
+    """Route the port's kernel calls through the given functions."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    saved = fa.flash_attention_rope, qm.w4a8_matmul
+    fa.flash_attention_rope, qm.w4a8_matmul = attention, w4a8
+    try:
+        yield
+    finally:
+        fa.flash_attention_rope, qm.w4a8_matmul = saved
+
+
+def plain_kernels():
+    """Route the port through the kernels' plain versions on the card."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    return routed(fa.flash_attention_rope_ref, qm.w4a8_matmul_ref)
+
+
+def attention_fp64(torch, q, k, v, cos, sin, kcos, ksin):
+    """Attention of the same bf16-rounded rotated operands in float64 with an
+    unrounded softmax: the value both bf16 versions approximate."""
+    from unigen_tpu_torch.ops.rope import apply_rotary
+    qr, kr = (apply_rotary(x, c, s).double() for x, c, s in
+              ((q, cos, sin), (k, kcos, ksin)))
+    p = torch.softmax(qr @ kr.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
+    return p @ v.double()
+
+
+def shadowed_kernels(torch, checks):
+    """Run every kernel call of the path as it is and also through its plain
+    version on the same inputs; append one record per call to
+    ``checks[name]``. W4A8 must be bit-identical. Attention must agree within
+    1e-2 of the call's largest output: the two bf16 versions round P at
+    different points (the kernel before normalising, the plain version
+    after), so their difference scales with the call's outputs, not with
+    each element. Where the elementwise atol=rtol=1e-2 of phase 3 fails,
+    the record says which of the two is nearer the float64 value."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    kernel_fa, kernel_qm = fa.flash_attention_rope, qm.w4a8_matmul
+
+    def attention(*args):
+        out, ref = kernel_fa(*args), fa.flash_attention_rope_ref(*args)
+        o, r = out.float(), ref.float()
+        err, scale = (o - r).abs().max().item(), r.abs().max().item()
+        rec = dict(shape=list(args[0].shape) + [args[1].shape[2]], max_abs_err=err,
+                   max_abs_out=scale, ok=err <= 1e-2 * scale)
+        if not torch.allclose(o, r, atol=1e-2, rtol=1e-2):
+            truth = attention_fp64(torch, *args)
+            rec.update(elementwise_fail=True,
+                       kernel_vs_fp64=(out.double() - truth).abs().max().item(),
+                       plain_vs_fp64=(ref.double() - truth).abs().max().item())
+        checks["flash_attention_rope"].append(rec)
+        return out
+
+    def w4a8(*args):
+        out, ref = kernel_qm(*args), qm.w4a8_matmul_ref(*args)
+        checks["w4a8_matmul"].append(dict(
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            ok=torch.equal(out, ref)))
+        return out
+
+    return routed(attention, w4a8)
+
+
+def phase_kernels(torch, dev):
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    from unigen_tpu_torch.ops.quant import _int_mm, unpack_int4
+    from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {"flash_attention_rope": [], "w4a8_matmul": []}
+
+    def ids(n):
+        r = torch.arange(n, device=dev)
+        return torch.stack([torch.zeros_like(r), r // HW, r % HW], -1).float()
+
+    for b, h, sq, skv, ident in ATTN_CASES:
+        d = fa.HEAD_DIM
+        cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
+        kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
+        kcos = torch.cat([kcos, torch.ones(ident, d, device=dev)])
+        ksin = torch.cat([ksin, torch.zeros(ident, d, device=dev)])
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
+                   for s in (sq, skv, skv))
+        args = (q, k, v, cos, sin, kcos, ksin)
+        out = fa.flash_attention_rope(*args)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_rope_ref(*args)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        qr, kr = apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin)
+        flops = 4.0 * b * h * sq * skv * d
+        nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d) + 4.0 * 2 * (sq + skv) * d
+        bms, by = bound(flops, BF16_FLOPS, nbytes)
+        row = dict(kernel="flash_attention_rope", b=b, h=h, sq=sq, skv=skv,
+                   identity_rows=ident, max_abs_err=err, ok=ok,
+                   ms=median_ms(lambda: fa.flash_attention_rope(*args)),
+                   plain_ms=median_ms(lambda: fa.flash_attention_rope_ref(*args)),
+                   library_ms=median_ms(
+                       lambda: F.scaled_dot_product_attention(qr, kr, v)),
+                   bound_ms=bms, bound_by=by)
+        emit(row)
+        rows["flash_attention_rope"].append(row)
+
+    for m, kdim, n in W4A8_CASES:
+        xq = torch.randint(-127, 128, (m, kdim), dtype=torch.int8, device=dev,
+                           generator=g)
+        xs = torch.rand(m, 1, device=dev, generator=g) * 1e-2 + 1e-4
+        w = torch.randint(-128, 128, (kdim // 2, n), dtype=torch.int8,
+                          device=dev, generator=g)
+        ws = torch.rand(1, n, device=dev, generator=g) * 1e-3 + 1e-4
+        out = qm.w4a8_matmul(xq, xs, w, ws)
+        torch.cuda.synchronize()
+        ref = qm.w4a8_matmul_ref(xq, xs, w, ws)
+        w8 = unpack_int4(w)
+        ops = 2.0 * m * n * kdim
+        nbytes = m * kdim + 4.0 * m + kdim / 2 * n + 4.0 * n + 2.0 * m * n
+        bms, by = bound(ops, INT8_OPS, nbytes)
+        row = dict(kernel="w4a8_matmul", m=m, k=kdim, n=n,
+                   max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                   ok=torch.equal(out, ref),
+                   ms=median_ms(lambda: qm.w4a8_matmul(xq, xs, w, ws)),
+                   plain_ms=median_ms(lambda: qm.w4a8_matmul_ref(xq, xs, w, ws)),
+                   library_ms=median_ms(lambda: (
+                       _int_mm(xq, w8).float() * xs * ws).to(torch.bfloat16)),
+                   bound_ms=bms, bound_by=by)
+        emit(row)
+        rows["w4a8_matmul"].append(row)
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+def device_breakdown(torch, fn):
+    """Device time of one forward by kernel (torch.profiler), beside the
+    forward's wall time measured without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0, "library gemm": 0.0,
+              "other": 0.0}
+    for name, us in by_name.items():
+        key = ("w4a8_matmul" if "w4a8" in name else
+               "flash_attention_rope" if "flash_rope" in name else
+               "library gemm" if any(t in name.lower() for t in ("gemm", "cutlass", "xmma"))
+               else "other")
+        groups[key] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit(dict(phase="profile", forward_batch=BATCH, wall_ms=wall_us / 1e3,
+              device_busy_ms=busy / 1e3,
+              device_idle_share=(1 - busy / wall_us) if busy else None,
+              groups_ms={k: v / 1e3 for k, v in groups.items()},
+              top_kernels_ms=[[n[:80], us / 1e3] for n, us in top]))
+
+
+def expected_launches(params, cfg):
+    """Per forward: attention sites, and W4A8 linear calls counted from the
+    tree (a stacked leaf is used once per application of its stack)."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    bb, cc = cfg.flux, cfg.control
+    uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers}
+    w4 = sum(uses.get(path[1], 1) for path, _ in tree_leaves_with_path(params)
+             if path[-1] == "w_q4")
+    attn = (2 * bb.num_layers + 2 * bb.num_single_layers
+            + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
+    return attn, w4
+
+
+def phase_slice(torch, dev):
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.io.from_jax import init_quantized_serving_params
+    from unigen_tpu_torch.models.unigen_flux import UniGenFlux
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+    from unigen_tpu_torch.serving import MicroBatchServer
+    from unigen_tpu_torch.utils import param_bytes
+
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    t0 = time.time()
+    params = init_quantized_serving_params(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    resident = param_bytes(params)
+    model = UniGenFlux(cfg, params, device=dev)
+    print(f"# slice: flux_full W4A8 tree built in {time.time() - t0:.1f}s, "
+          f"resident {resident / 2**30:.3f} GiB", flush=True)
+
+    host = torch.Generator().manual_seed(1)
+
+    def request():
+        def mk(*shape):
+            return torch.randn(*shape, generator=host).numpy()
+        return dict(latents=mk(1, HW * HW, bb.in_channels),
+                    condition=mk(1, HW * HW, bb.in_channels),
+                    encoder=mk(1, SEQ_TXT, bb.joint_attention_dim),
+                    pooled=mk(1, bb.pooled_projection_dim),
+                    cond_pooled=mk(1, bb.pooled_projection_dim))
+
+    reqs = [request() for _ in range(N_REQUESTS)]
+    warm = {k: torch.cat([torch.as_tensor(r[k]) for r in reqs[:BATCH]])
+            for k in reqs[0]}
+    t0 = time.time()
+    model.denoise(**warm, num_steps=1)
+    torch.cuda.synchronize()
+    print(f"# slice: warm-up forward {time.time() - t0:.2f}s", flush=True)
+
+    def launches_now():
+        return (("flash_attention_rope", fa.launches),
+                ("w4a8_matmul", qm.launches))
+
+    srv = MicroBatchServer(lambda x: model.denoise(**x, num_steps=STEPS),
+                           batch_size=BATCH, max_wait_ms=50)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    qm.launches = 0
+    try:
+        t0 = time.time()
+        futs = [srv.submit(**r) for r in reqs]
+        outs = [f.result(timeout=900) for f in futs]
+        dt = time.time() - t0
+    finally:
+        srv.close()
+    launches = dict(launches_now())
+    peak = torch.cuda.max_memory_allocated()
+
+    forwards = srv.stats.batches * STEPS
+    attn_pf, w4_pf = expected_launches(params, cfg)
+    want = {"flash_attention_rope": attn_pf * forwards,
+            "w4a8_matmul": w4_pf * forwards}
+    for o in outs:
+        if tuple(o.shape) != (1, HW * HW, bb.in_channels) or not torch.isfinite(o).all():
+            raise SystemExit(f"bad denoise output: {tuple(o.shape)}")
+    if srv.stats.batches != N_REQUESTS // BATCH or launches != want:
+        raise SystemExit(f"launches {launches} != expected {want} "
+                         f"({srv.stats.batches} batches)")
+
+    # one forward with the kernels, one with the plain versions, same inputs
+    def forward_fn(batch):
+        x = {k: v.to(dev, model.dtype) for k, v in batch.items()}
+        b = x["latents"].shape[0]
+        img_ids = prepare_latent_image_ids(HW, HW, device=dev)
+        args = (x["latents"], x["condition"], x["encoder"], x["pooled"],
+                x["cond_pooled"], torch.ones(b, dtype=model.dtype, device=dev),
+                img_ids, torch.zeros(SEQ_TXT, 3, device=dev), img_ids)
+        return lambda: model(*args)[0]
+
+    # One forward with the kernels, each call also held against its plain
+    # version on the path's own inputs (under this random init the
+    # differences inside the forward need not reach its output, so the output
+    # alone may not see a kernel fault); then one forward with the plain
+    # versions on the same inputs.
+    fwd1 = forward_fn({k: torch.as_tensor(v) for k, v in reqs[0].items()})
+    checks = {"flash_attention_rope": [], "w4a8_matmul": []}
+    with torch.no_grad():
+        before = dict(launches_now())
+        with shadowed_kernels(torch, checks):
+            pred_k = fwd1().float()
+        mid = dict(launches_now())
+        with plain_kernels():
+            pred_p = fwd1().float()
+        after = dict(launches_now())
+    if mid != {k: before[k] + n for k, n in (("flash_attention_rope", attn_pf),
+                                             ("w4a8_matmul", w4_pf))} or after != mid:
+        raise SystemExit(f"kernel/plain forwards launched {before} -> {mid} -> {after}")
+    path_check = {name: dict(calls=len(c), max_abs_err=max(r["max_abs_err"] for r in c),
+                             disagree=sum(not r["ok"] for r in c))
+                  for name, c in checks.items()}
+    attn = checks["flash_attention_rope"]
+    path_check["flash_attention_rope"].update(
+        max_err_over_max_out=max(r["max_abs_err"] / max(r["max_abs_out"], 1e-30)
+                                 for r in attn),
+        elementwise_fails=[r for r in attn if r.get("elementwise_fail")])
+    emit(dict(phase="path_check", **path_check))
+    if any(c["disagree"] or not c["calls"] for c in path_check.values()):
+        raise SystemExit(f"a kernel disagrees with its plain version on the path: "
+                         f"{path_check}")
+    rel = ((pred_k - pred_p).norm() / pred_p.norm()).item()
+    print(f"# slice: kernel vs plain forward: |pred| mean {pred_p.abs().mean().item():.4g}, "
+          f"max abs diff {(pred_k - pred_p).abs().max().item():.4g}, "
+          f"{int((pred_k != pred_p).sum())} of {pred_p.numel()} values differ", flush=True)
+
+    with torch.no_grad():
+        device_breakdown(torch, forward_fn(warm))
+    result = dict(phase="slice", requests=N_REQUESTS, batches=srv.stats.batches,
+                  steps=STEPS, seconds=dt, images_per_s=N_REQUESTS / dt,
+                  ms_per_denoise_step=dt / forwards * 1e3,
+                  attention_launches_per_forward=attn_pf,
+                  w4a8_launches_per_forward=w4_pf, launches=launches,
+                  kernel_vs_plain_rel_l2=rel, peak_bytes=peak,
+                  resident_bytes=resident, out_shape=list(outs[0].shape))
+    emit(result)
+    if not (rel <= 3e-2):
+        raise SystemExit(f"kernel forward differs from plain: rel L2 {rel}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one card",
+              file=sys.stderr)
+        return 2
+    from unigen_tpu_torch.ops.cuda import build
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+
+    # 1. device
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    # 2. build
+    t0 = time.time()
+    logs = build.build_all([fa.KERNEL, qm.KERNEL])
+    print(f"# build: {time.time() - t0:.1f}s from {build.CSRC}", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"# {name}: {line.strip()}", flush=True)
+
+    # 3. kernels at the main path's shapes
+    rows = phase_kernels(torch, dev)
+
+    # 4. the slice
+    launches = phase_slice(torch, dev)
+
+    # 5. kernels line: the dominant main-path shape of each kernel
+    sources = {"flash_attention_rope": ("unigen_tpu_torch/csrc/flash_attention_rope.cu",
+                                        "unigen_tpu/ops/pallas/flash_attention.py:128"),
+               "w4a8_matmul": ("unigen_tpu_torch/csrc/w4a8_matmul.cu",
+                               "unigen_tpu/ops/pallas/quant_matmul.py:57")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        rep = rows[name][0] if name == "flash_attention_rope" else rows[name][1]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows[name]),
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"]))
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

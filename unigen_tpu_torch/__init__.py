@@ -1,0 +1,10 @@
+"""unigen_tpu_torch: the PyTorch/CUDA port of unigen_tpu for NVIDIA Hopper.
+
+Parameters are nested dicts of tensors in the JAX package's layout, the math
+is plain functions on tensors, and the TPU's Pallas kernels are hand-written
+CUDA kernels under ``ops/cuda`` (sources in ``csrc/``). The serving entry is
+``models.unigen_flux.UniGenFlux`` wrapped in ``serving.MicroBatchServer``.
+The package imports neither JAX nor the JAX package.
+"""
+
+__version__ = "0.1.0"

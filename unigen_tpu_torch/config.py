@@ -1,0 +1,115 @@
+"""Config dataclasses of the FLUX family (a copy of ``unigen_tpu/config.py``).
+
+The port keeps its own copy so that it imports nothing of the JAX package.
+Only the FLUX pieces the serving slice reads are here: the backbone, the
+control branch with its MoE, and the model config that joins them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class FluxBackboneConfig:
+    """FLUX.1 MMDiT backbone hyperparameters (frozen pretrained base)."""
+    in_channels: int = 64                  # packed latent channels (16 * 2 * 2)
+    num_layers: int = 19                   # double-stream blocks
+    num_single_layers: int = 38            # single-stream blocks
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096        # T5 embedding dim
+    pooled_projection_dim: int = 768       # CLIP pooled dim
+    guidance_embeds: bool = False          # schnell: False, dev: True
+    axes_dims_rope: Tuple[int, ...] = (16, 56, 56)
+    rope_theta: int = 10000
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def out_channels(self) -> int:
+        return self.in_channels
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Condition-expert MoE: GShard top-1 routing with a static capacity.
+
+    ``batch_mode="per_sample"`` routes each sample with its own capacity
+    (the serving mode); ``"global"`` routes all B*S tokens together.
+    """
+    expert_num: Optional[int] = None
+    expert_num_each_condition: int = 3
+    top_k: int = 1
+    capacity_factor: float = 1.0
+    eval_capacity_factor: float = 1.0
+    min_capacity: int = 4
+    drop_tokens: bool = True
+    use_rts: bool = False
+    aux_loss_weight: float = 0.1
+    ep_size: int = 1
+    batch_mode: str = "global"
+    fast_dispatch: bool = True
+
+    def num_experts(self, condition_nums: int) -> int:
+        if self.expert_num is not None:
+            return self.expert_num
+        return (condition_nums + 1) * self.expert_num_each_condition
+
+
+@dataclass(frozen=True)
+class ControlConfig:
+    """Condition-weaving control branch. ``use_rope=True`` is the only
+    shape-consistent FLUX configuration (see the JAX package's note)."""
+    use_transformer_params: bool = True
+    use_pooled_prompt_embeds: bool = True
+    use_encoder_hidden_states: bool = True
+    use_single_trans_blocks: bool = True
+    single_block_control_method: str = "overall_add"  # or "single_add"
+    single_control_dev: int = 2            # base blocks per control block
+    use_shared_expert: bool = True
+    use_consis_module: bool = False
+    use_modulate: bool = False
+    use_rope: bool = True
+    use_pos_embed: bool = False
+    cn2base_method: str = "add"
+    extra_conditioning_channels: int = 0
+    num_layers: Optional[int] = None
+    moe: MoEConfig = field(default_factory=MoEConfig)
+
+
+@dataclass(frozen=True)
+class UniGenConfig:
+    """FLUX backbone + control branch + condition types."""
+    family: str = "flux"
+    flux: FluxBackboneConfig = field(default_factory=FluxBackboneConfig)
+    control: ControlConfig = field(default_factory=ControlConfig)
+    condition_types: Tuple[str, ...] = ("canny",)
+
+    @property
+    def condition_nums(self) -> int:
+        return len(self.condition_types)
+
+    @property
+    def backbone(self) -> FluxBackboneConfig:
+        return self.flux
+
+
+def tiny_flux_config(**overrides) -> FluxBackboneConfig:
+    """A miniature Flux config for tests (same topology, tiny dims)."""
+    base = dict(
+        in_channels=16, num_layers=2, num_single_layers=4,
+        attention_head_dim=16, num_attention_heads=4,
+        joint_attention_dim=32, pooled_projection_dim=24,
+        guidance_embeds=False, axes_dims_rope=(4, 6, 6),
+    )
+    base.update(overrides)
+    return FluxBackboneConfig(**base)
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)

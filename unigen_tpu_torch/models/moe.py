@@ -1,0 +1,102 @@
+"""Condition-expert MoE with modulated experts (port of
+``unigen_tpu/models/moe.py``, the serving path).
+
+A GShard top-1 router on (hidden + condition) routes every stream with one
+set of slots; each expert is a pair of modulated linears computed as
+batched matmuls over the expert axis; the gather combine weights by the gate.
+``batch_mode="per_sample"`` routes each sample with its own capacity (the
+JAX ``vmap`` over samples becomes a loop over the batch).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from unigen_tpu_torch.config import ControlConfig
+from unigen_tpu_torch.layers.core import init_linear
+from unigen_tpu_torch.ops import gating
+from unigen_tpu_torch.ops.modulation import batched_modulated_linear
+from unigen_tpu_torch.utils import init_stacked
+
+
+class MoEOutput(NamedTuple):
+    expert_hidden: torch.Tensor      # [B, S, D]
+    expert_condition: torch.Tensor   # [B, S, D]
+    aux_loss: torch.Tensor           # scalar
+    expert_counts: torch.Tensor      # [E]
+
+
+def init_moe_params(dim: int, pooled_dim: int, num_experts: int, *, gen=None,
+                    device=None, dtype=torch.float32) -> dict:
+    """Modulated experts: two [Linear(d, d), Linear(pooled, d)] pairs each.
+    The router gate stays fp32."""
+    kw = dict(gen=gen, device=device, dtype=dtype)
+
+    def stack_lin(i, o):
+        return init_stacked(num_experts, lambda: init_linear(i, o, **kw))
+
+    return {
+        "gate": init_linear(dim, num_experts, bias=False, gen=gen,
+                            device=device, dtype=torch.float32),
+        "experts": {"cond_mod": stack_lin(dim, dim),
+                    "cond_pool": stack_lin(pooled_dim, dim),
+                    "hid_mod": stack_lin(dim, dim),
+                    "hid_pool": stack_lin(pooled_dim, dim)},
+    }
+
+
+def _expert_compute_modulated(experts: dict, routed: Dict[str, torch.Tensor]):
+    """cond'   = W_c (.) Lc(cond_pooled) @ cond + b_c
+       hidden' = W_h (.) Lh(pooled) @ (hidden + cond') + b_h
+    on dispatched [E, C, *] inputs."""
+    s_c = (torch.bmm(routed["condition_pooled"], experts["cond_pool"]["w"])
+           + experts["cond_pool"]["b"][:, None, :])
+    cond_out = batched_modulated_linear(routed["condition"],
+                                        experts["cond_mod"]["w"], s_c,
+                                        experts["cond_mod"]["b"])
+    s_h = (torch.bmm(routed["pooled"], experts["hid_pool"]["w"])
+           + experts["hid_pool"]["b"][:, None, :])
+    hid_out = batched_modulated_linear(routed["hidden"] + cond_out,
+                                       experts["hid_mod"]["w"], s_h,
+                                       experts["hid_mod"]["b"])
+    return hid_out, cond_out
+
+
+def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
+              hidden: torch.Tensor, condition: torch.Tensor,
+              streams: Dict[str, torch.Tensor]) -> MoEOutput:
+    """Route on (hidden + condition), dispatch all streams, run the experts,
+    combine. ``streams`` holds condition_pooled/pooled (and temb streams,
+    which are routed alongside)."""
+    if "cond_mod" not in params["experts"]:
+        raise NotImplementedError("block experts (use_rope=False and "
+                                  "use_modulate=False) wait for a later slice")
+    if cfg.moe.top_k != 1 or not cfg.moe.fast_dispatch:
+        raise NotImplementedError("the port serves top-1 gather dispatch only")
+    b, s, d = hidden.shape
+    if cfg.moe.batch_mode == "per_sample" and b > 1:
+        outs = [moe_apply(params, cfg, num_experts, hidden[i:i + 1],
+                          condition[i:i + 1],
+                          {k: v[i:i + 1] for k, v in streams.items()})
+                for i in range(b)]
+        return MoEOutput(torch.cat([o.expert_hidden for o in outs]),
+                         torch.cat([o.expert_condition for o in outs]),
+                         torch.stack([o.aux_loss for o in outs]).mean(),
+                         torch.stack([o.expert_counts for o in outs]).sum(dim=0))
+
+    choice = (hidden + condition).reshape(-1, d)
+    logits = choice.to(torch.float32) @ params["gate"]["w"]
+    capacity = (b * s if not cfg.moe.drop_tokens else gating.compute_capacity(
+        b * s, num_experts, cfg.moe.eval_capacity_factor, cfg.moe.min_capacity))
+    gate_out = gating.top1_gate(logits, capacity)
+
+    routed = {"hidden": hidden, "condition": condition, **streams}
+    routed, dest = gating.dispatch_streams_gather(gate_out, capacity,
+                                                  num_experts, s, routed)
+    hid_out, cond_out = _expert_compute_modulated(params["experts"], routed)
+    out_h = gating.combine_gather(gate_out, dest, hid_out, hidden.dtype)
+    out_c = gating.combine_gather(gate_out, dest, cond_out, hidden.dtype)
+    return MoEOutput(out_h.reshape(b, s, d), out_c.reshape(b, s, d),
+                     gate_out.aux_loss, gate_out.expert_counts)

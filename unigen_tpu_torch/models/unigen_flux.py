@@ -1,0 +1,318 @@
+"""UniGenFlux: condition-weaving control branch + MoE expert modulation over
+a frozen FLUX.1 backbone (port of ``unigen_tpu/models/unigen_flux.py``, the
+plain serving forward), and ``UniGenFlux``, the module at the port's entry.
+
+  x_embed / context_embed / time_text_embed
+  base double block 0
+  -> preprocess_moe: control embedders, MoE route + experts, shared-expert
+     condition weave (2 joint blocks)
+  -> control double block 0 on (expert_h + expert_c), gated zero-linear add
+  19x [base double -> control double (idx i*n_cn//19) -> gated add]
+  stream = [txt | img]
+  38x [base single -> control single (idx i//2) -> overall_add | single_add]
+  AdaLN-continuous out -> proj
+
+Control blocks run sample-first with rope; every control block reads the
+fixed control context; multi-condition inputs carry a leading condition
+axis, and their expert outputs and condition tembs are summed.
+Control-residual capture and replay wait for the caching slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from unigen_tpu_torch.config import UniGenConfig
+from unigen_tpu_torch.layers.adaln import adaln_continuous
+from unigen_tpu_torch.layers.blocks_flux import (flux_double_block,
+                                                 flux_single_block,
+                                                 init_flux_double_block,
+                                                 init_flux_single_block)
+from unigen_tpu_torch.layers.core import init_linear, linear
+from unigen_tpu_torch.layers.embeddings import (combined_time_text,
+                                                init_combined_time_text)
+from unigen_tpu_torch.models import moe as moe_lib
+from unigen_tpu_torch.models.flux import (flux_embed_inputs, flux_rope,
+                                          init_flux_params)
+from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+from unigen_tpu_torch.pipelines import scheduling
+from unigen_tpu_torch.utils import (index_params, init_stacked, resolve_device,
+                                    tree_map)
+
+
+def control_block_index_table(n_base: int, n_control: int) -> list:
+    """Reference mapping: int(i / (n_base / n_control))."""
+    interval = n_base / n_control
+    return [min(int(i / interval), n_control - 1) for i in range(n_base)]
+
+
+def _check_supported(cfg: UniGenConfig):
+    if cfg.control.use_consis_module:
+        raise NotImplementedError("the consis module waits for a later slice")
+    if not (cfg.control.use_rope or cfg.control.use_modulate):
+        raise NotImplementedError("block experts wait for a later slice")
+
+
+def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
+                             dtype=torch.float32,
+                             base_params: Optional[dict] = None) -> dict:
+    """The adapter tree; warm-started from ``base_params`` when given
+    (control double/single blocks, both time embedders and x_embedder copy
+    the base; the context embedder does not)."""
+    _check_supported(cfg)
+    bb, cc = cfg.flux, cfg.control
+    d, heads, hd = bb.inner_dim, bb.num_attention_heads, bb.attention_head_dim
+    n_cn = bb.num_layers // cc.single_control_dev
+    n_cn_single = bb.num_single_layers // cc.single_control_dev
+    kw = dict(gen=gen, device=device, dtype=dtype)
+    p: Dict[str, Any] = {
+        "x_embedder": init_linear(bb.in_channels, d, **kw),
+        "time_text_embed": init_combined_time_text(
+            d, bb.pooled_projection_dim, guidance=bb.guidance_embeds, **kw),
+        "condition_embed": init_combined_time_text(
+            d, bb.pooled_projection_dim, guidance=bb.guidance_embeds, **kw),
+        "context_embedder": init_linear(d, d, **kw),
+        "double_blocks": init_stacked(
+            n_cn, lambda: init_flux_double_block(d, heads, hd, **kw)),
+        "add_double": init_stacked(
+            n_cn, lambda: init_linear(d, d, zero=True, **kw)),
+        "moe": moe_lib.init_moe_params(
+            d, bb.pooled_projection_dim,
+            cc.moe.num_experts(cfg.condition_nums), **kw),
+    }
+    if cc.use_single_trans_blocks:
+        p["single_blocks"] = init_stacked(
+            n_cn_single, lambda: init_flux_single_block(d, heads, hd, **kw))
+        p["add_single"] = init_stacked(
+            n_cn_single, lambda: init_linear(d, d, zero=True, **kw))
+    if cc.use_shared_expert:
+        p["shared_expert"] = {
+            "weave_cond": init_flux_double_block(d, heads, hd, **kw),
+            "weave_text": init_flux_double_block(d, heads, hd, **kw),
+        }
+    if cc.use_transformer_params and base_params is not None:
+        p["x_embedder"] = tree_map(torch.clone, base_params["x_embedder"])
+        p["time_text_embed"] = tree_map(torch.clone, base_params["time_text_embed"])
+        p["condition_embed"] = tree_map(torch.clone, base_params["time_text_embed"])
+        p["double_blocks"] = tree_map(lambda x: x[:n_cn].clone(),
+                                      base_params["double_blocks"])
+        if "single_blocks" in p:
+            p["single_blocks"] = tree_map(lambda x: x[:n_cn_single].clone(),
+                                          base_params["single_blocks"])
+    return p
+
+
+def init_unigen_flux_params(cfg: UniGenConfig, *, gen=None, device=None,
+                            dtype=torch.float32) -> dict:
+    base = init_flux_params(cfg.flux, gen=gen, device=device, dtype=dtype)
+    control = init_unigen_flux_control(cfg, gen=gen, device=device, dtype=dtype,
+                                       base_params=base)
+    return {"base": base, "control": control}
+
+
+class PreprocessOutput(NamedTuple):
+    moe_hidden: torch.Tensor       # control-block-0 input
+    control_enc: torch.Tensor      # fixed control context stream
+    control_temb: torch.Tensor
+    block_temb: torch.Tensor       # condition temb (summed over conditions)
+    aux_loss: torch.Tensor
+    expert_counts: torch.Tensor
+
+
+def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
+                    control_temb, cond_temb, pooled, condition_pooled,
+                    img_ids, cond_ids, txt_ids) -> moe_lib.MoEOutput:
+    """Route + experts, then the shared-expert weave."""
+    bb, cc = cfg.flux, cfg.control
+    heads = bb.num_attention_heads
+    streams = {"temb": control_temb, "condition_temb": cond_temb,
+               "pooled": pooled, "condition_pooled": condition_pooled}
+    out = moe_lib.moe_apply(ctrl["moe"], cc, cc.moe.num_experts(cfg.condition_nums),
+                            h0, cond_h, streams)
+    exp_h, exp_c = out.expert_hidden, out.expert_condition
+
+    if "shared_expert" in ctrl:
+        # weave 1: img stream <-> condition context (temb = condition temb)
+        rope1 = flux_rope(bb, torch.cat([img_ids, cond_ids])) if cc.use_rope else None
+        cond_states, hidden_states = flux_double_block(
+            ctrl["shared_expert"]["weave_cond"], h0, cond_h, cond_temb, rope1,
+            heads=heads, context_first=False)
+        # weave 2: [img | cond] stream <-> text context (temb = control temb)
+        rope2 = (flux_rope(bb, torch.cat([img_ids, cond_ids, txt_ids]))
+                 if cc.use_rope else None)
+        _, hc = flux_double_block(
+            ctrl["shared_expert"]["weave_text"],
+            torch.cat([hidden_states, cond_states], dim=1), control_enc,
+            control_temb, rope2, heads=heads, context_first=False)
+        s = hidden_states.shape[1]
+        exp_h = hc[:, :s] + exp_h
+        exp_c = hc[:, s:] + exp_c
+    return moe_lib.MoEOutput(exp_h, exp_c, out.aux_loss, out.expert_counts)
+
+
+def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
+                   pooled, condition_pooled, timestep, guidance,
+                   img_ids, txt_ids, condition_ids) -> PreprocessOutput:
+    """Single ([B,Sc,C] condition) and multi ([K,B,Sc,C]) condition modes."""
+    cc = cfg.control
+    dtype = h0.dtype
+    ctrl_pooled = pooled if cc.use_pooled_prompt_embeds else torch.zeros_like(pooled)
+    t1000 = timestep.to(torch.float32) * 1000.0
+    g1000 = None if guidance is None else guidance.to(torch.float32) * 1000.0
+    control_temb = combined_time_text(ctrl["time_text_embed"], t1000,
+                                      ctrl_pooled, g1000, dtype=dtype)
+    control_enc = linear(ctrl["context_embedder"], enc0)
+
+    multi = condition.dim() == 4
+    conds = condition if multi else condition[None]
+    cond_pooleds = condition_pooled if multi else condition_pooled[None]
+    cond_id_list = condition_ids if multi else condition_ids[None]
+
+    moe_hidden = torch.zeros_like(h0)
+    block_temb = torch.zeros_like(control_temb)
+    out = None
+    for k in range(conds.shape[0]):
+        cond_h = linear(ctrl["x_embedder"], conds[k])
+        cond_temb = combined_time_text(ctrl["condition_embed"], t1000,
+                                       cond_pooleds[k], g1000, dtype=dtype)
+        out = _moe_with_weave(ctrl, cfg, h0, cond_h, control_enc, control_temb,
+                              cond_temb, pooled, cond_pooleds[k], img_ids,
+                              cond_id_list[k], txt_ids)
+        moe_hidden = moe_hidden + out.expert_hidden + out.expert_condition
+        block_temb = block_temb + cond_temb
+    # aux loss and counts of the last condition (reference behavior)
+    return PreprocessOutput(moe_hidden, control_enc, control_temb, block_temb,
+                            out.aux_loss, out.expert_counts)
+
+
+def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
+                        encoder, pooled, condition_pooled, timestep, img_ids,
+                        txt_ids, condition_ids, guidance=None, *,
+                        conditioning_scale: float = 1.0,
+                        control_residuals=None,
+                        return_control_residuals: bool = False):
+    """Full UniGenFlux forward -> (pred [B, S, C], add_losses, add_outputs).
+    condition/condition_pooled/condition_ids may carry a leading condition
+    axis for multi-condition control."""
+    if control_residuals is not None or return_control_residuals:
+        raise NotImplementedError(
+            "control-residual capture and replay wait for the caching slice")
+    _check_supported(cfg)
+    base, ctrl = params["base"], params["control"]
+    bb, cc = cfg.flux, cfg.control
+    heads = bb.num_attention_heads
+    # an fp32 scale must not promote the bf16 residual stream
+    scale = torch.as_tensor(conditioning_scale, dtype=hidden.dtype,
+                            device=hidden.device)
+
+    h, enc, temb = flux_embed_inputs(base, bb, hidden, encoder, pooled,
+                                     timestep, guidance)
+    rope_base = flux_rope(bb, torch.cat([txt_ids, img_ids]))
+    rope_cn_double = flux_rope(bb, torch.cat([img_ids, txt_ids])) if cc.use_rope else None
+    rope_single = rope_base if cc.use_rope else None
+
+    n_base = bb.num_layers
+    cn_table = control_block_index_table(n_base, n_base // cc.single_control_dev)
+
+    enc, h = flux_double_block(index_params(base["double_blocks"], 0), h, enc,
+                               temb, rope_base, heads=heads)
+    pre = preprocess_moe(ctrl, cfg, h, enc, condition, pooled, condition_pooled,
+                         timestep, guidance, img_ids, txt_ids, condition_ids)
+    _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
+                                  pre.moe_hidden, pre.control_enc,
+                                  pre.block_temb, rope_cn_double, heads=heads,
+                                  context_first=False)
+    h = h + linear(index_params(ctrl["add_double"], 0), cn_out) * scale
+
+    for i in range(1, n_base):
+        enc, h = flux_double_block(index_params(base["double_blocks"], i), h,
+                                   enc, temb, rope_base, heads=heads)
+        j = cn_table[i]
+        _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], j), h,
+                                      pre.control_enc, pre.block_temb,
+                                      rope_cn_double, heads=heads,
+                                      context_first=False)
+        h = h + linear(index_params(ctrl["add_double"], j), cn_out) * scale
+
+    stream = torch.cat([enc, h], dim=1)
+    enc_len = enc.shape[1]
+    n_s = bb.num_single_layers
+    if cc.use_single_trans_blocks and "single_blocks" in ctrl:
+        cn_s_table = control_block_index_table(n_s, n_s // cc.single_control_dev)
+        for i in range(n_s):
+            stream = flux_single_block(index_params(base["single_blocks"], i),
+                                       stream, temb, rope_base, heads=heads)
+            j = cn_s_table[i]
+            cn_out = flux_single_block(index_params(ctrl["single_blocks"], j),
+                                       stream, pre.block_temb, rope_single,
+                                       heads=heads)
+            zc = linear(index_params(ctrl["add_single"], j), cn_out) * scale
+            if cc.single_block_control_method == "overall_add":
+                stream = stream + zc
+            else:  # single_add: image section only
+                stream = torch.cat([stream[:, :enc_len],
+                                    stream[:, enc_len:] + zc[:, enc_len:]], dim=1)
+    else:
+        for i in range(n_s):
+            stream = flux_single_block(index_params(base["single_blocks"], i),
+                                       stream, temb, rope_base, heads=heads)
+
+    h = adaln_continuous(base["norm_out"], stream[:, enc_len:], temb)
+    pred = linear(base["proj_out"], h)
+    add_losses = {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight}
+    return pred, add_losses, {"expert_counts": pre.expert_counts}
+
+
+class UniGenFlux(nn.Module):
+    """The port's entry: holds a parameter tree on one device and runs the
+    forward and the flow-matching Euler denoise. ``device`` defaults to
+    CUDA and must be named "cpu" to run on the CPU."""
+
+    def __init__(self, cfg: UniGenConfig, params: dict, *, device=None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.params = tree_map(lambda t: t.to(self.device), params)
+
+    def forward(self, hidden, condition, encoder, pooled, condition_pooled,
+                timestep, img_ids, txt_ids, condition_ids, guidance=None, *,
+                conditioning_scale: float = 1.0):
+        return unigen_flux_forward(
+            self.params, self.cfg, hidden, condition, encoder, pooled,
+            condition_pooled, timestep, img_ids, txt_ids, condition_ids,
+            guidance, conditioning_scale=conditioning_scale)
+
+    @torch.no_grad()
+    def denoise(self, latents, condition, encoder, pooled, cond_pooled, *,
+                num_steps: int = 4,
+                sched: scheduling.FlowMatchConfig = scheduling.FlowMatchConfig(shift=1.0)
+                ) -> torch.Tensor:
+        """The serving program: ``num_steps`` Euler steps of the forward on
+        packed latents [B, S, C] over a square latent grid, text ids zero,
+        condition ids = image ids. Inputs are cast to the model dtype on the
+        model's device; the timestep is rounded to that dtype, as the
+        reference denoise does."""
+        dev, dt = self.device, self.dtype
+        latents, condition, encoder, pooled, cond_pooled = (
+            torch.as_tensor(x).to(dev, dt)
+            for x in (latents, condition, encoder, pooled, cond_pooled))
+        b, s = latents.shape[:2]
+        hw = math.isqrt(s)
+        if hw * hw != s:
+            raise ValueError(f"denoise needs a square latent grid, got S={s}")
+        img_ids = prepare_latent_image_ids(hw, hw, device=dev)
+        txt_ids = torch.zeros(encoder.shape[-2], 3, device=dev)
+        sig, _ = scheduling.inference_sigmas(sched, num_steps)
+        for i in range(num_steps):
+            t = torch.full((b,), float(sig[i]), dtype=dt, device=dev)
+            pred, _, _ = self.forward(latents, condition, encoder, pooled,
+                                      cond_pooled, t, img_ids, txt_ids, img_ids)
+            latents = scheduling.euler_step(latents, pred, sig[i], sig[i + 1])
+        return latents

@@ -1,0 +1,61 @@
+"""Scaled dot-product attention: plain math and the dispatch to the kernel.
+
+Port of ``unigen_tpu/ops/attention.py``. ``sdpa_ref`` is the plain version
+of ``sdpa_xla`` (fp32 logits and softmax, probabilities cast to the value
+dtype for the second product). ``sdpa`` with rope tables runs the fused
+RoPE attention wrapper, which is the CUDA kernel on the card and the plain
+version on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from unigen_tpu_torch.ops.cuda import flash_attention as fa
+
+
+def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q, k, v: [B, H, S, Dh] -> [B, H, Sq, Dh]. Softmax in float32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         rope=None) -> torch.Tensor:
+    """rope: (cos, sin) [S, D] tables, or (cos, sin, kcos, ksin) with
+    separate K-side tables (the KV-append convention)."""
+    if rope is None:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "rope-free attention on CUDA is the flash_attention kernel "
+                "(unigen_tpu/ops/pallas/flash_attention.py:162), which a later "
+                "slice of the port brings; the FLUX serving path always passes rope")
+        return sdpa_ref(q, k, v)
+    cos, sin = rope[0], rope[1]
+    kcos, ksin = (rope[2], rope[3]) if len(rope) == 4 else (cos, sin)
+    tables = [t.to(torch.float32).contiguous() for t in (cos, sin, kcos, ksin)]
+    return fa.flash_attention_rope(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), *tables)
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, S, H*Dh] -> [B, H, S, Dh]."""
+    b, s, d = x.shape
+    return x.reshape(b, s, heads, d // heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, Dh] -> [B, S, H*Dh]."""
+    b, h, s, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, s, h * dh)

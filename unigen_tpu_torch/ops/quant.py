@@ -1,0 +1,160 @@
+"""Quantized serving paths: W8A8 and W4A8, forward only.
+
+Port of ``unigen_tpu/ops/quant.py``. Weights carry per-(block, out-channel)
+symmetric scales; activations are quantized per token at run time to int8;
+products accumulate in int32 and an fp32 epilogue rescales. ``layers/core.
+linear`` dispatches on the leaves: ``w_q``/``w_scale`` (int8) or
+``w_q4``/``w_scale`` (int4 codes in [-7, 7], two per int8 byte, HALF-PAIRED
+along the in-dim: packed row j holds source row j in its low nibble and row
+j + in/2 in its high nibble).
+
+Every W4A8 linear runs the hand-written CUDA kernel on the card
+(``ops/cuda/quant_matmul.py``). The W8A8 product is a library int8 GEMM
+(``torch._int_mm``), as it is an XLA dot and not a Pallas kernel in JAX.
+The straight-through backward waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from unigen_tpu_torch.ops.cuda import quant_matmul
+
+
+def quantize_weight(w: torch.Tensor) -> dict:
+    """[..., in, out] -> int8 codes with per-(block, out-channel) scales."""
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return {"w_q": q, "w_scale": scale}
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-7, 7], [..., in, out] -> packed int8 [..., in/2, out]
+    (half-paired along the in-dim)."""
+    assert q.shape[-2] % 2 == 0, f"in-dim must be even to nibble-pack: {q.shape}"
+    half = q.shape[-2] // 2
+    lo = q[..., :half, :] & 0x0F
+    hi = q[..., half:, :] << 4
+    return (lo | hi).to(torch.int8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """packed int8 [..., in/2, out] -> int8 [..., in, out], sign-extended."""
+    lo = (p << 4) >> 4         # arithmetic shift on int8 sign-extends
+    hi = p >> 4
+    return torch.cat([lo, hi], dim=-2)
+
+
+def quantize_weight_int4(w: torch.Tensor) -> dict:
+    """[..., in, out] -> nibble-packed int4 with per-(block, out-chan) scales.
+    Symmetric [-7, 7]; the -8 code is unused."""
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
+    return {"w_q4": pack_int4(q), "w_scale": scale}
+
+
+def _quantize_act(x: torch.Tensor):
+    """Dynamic per-token symmetric activation quantization to int8."""
+    xf = x.to(torch.float32)
+    xmax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = torch.where(xmax > 0, xmax / 127.0, torch.ones_like(xmax))
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
+def _check_2d(w: torch.Tensor, name: str):
+    if w.dim() != 2:
+        raise ValueError(
+            f"{name} needs a 2-D weight [in, out], got {tuple(w.shape)}; "
+            "index one block of a stacked tree before the matmul")
+
+
+def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> exact int32 [M, N]. cuBLASLt refuses
+    M <= 16 on the card, so short inputs are padded with zero rows."""
+    m = xq.shape[0]
+    if xq.is_cuda and m <= 16:
+        xq = torch.cat([xq, xq.new_zeros(32 - m, xq.shape[1])])
+    return torch._int_mm(xq, w_q)[:m]
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """W8A8: x [..., N, in] fp; w_q [in, out] int8; w_scale [1, out]."""
+    _check_2d(w_q, "int8_matmul")
+    out_dtype = out_dtype or x.dtype
+    xq, xs = _quantize_act(x)
+    lead = x.shape[:-1]
+    acc = _int_mm(xq.reshape(-1, x.shape[-1]), w_q).reshape(*lead, -1)
+    return (acc.to(torch.float32) * xs * w_scale.reshape(-1)).to(out_dtype)
+
+
+def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """W4A8: x [..., N, in] fp; w_q4 [in/2, out] packed; w_scale [1, out].
+    The product is the W4A8 kernel (its plain version on CPU tensors)."""
+    _check_2d(w_q4, "int4_matmul")
+    out_dtype = out_dtype or x.dtype
+    xq, xs = _quantize_act(x)
+    lead = x.shape[:-1]
+    out = quant_matmul.w4a8_matmul(
+        xq.reshape(-1, x.shape[-1]), xs.reshape(-1, 1), w_q4,
+        w_scale.reshape(1, -1), out_dtype)
+    return out.reshape(*lead, -1)
+
+
+def _eligible(path_names, node, *, min_dim: int, skip: Sequence[str]) -> bool:
+    if "w" not in node or node["w"].dim() < 2:
+        return False
+    joined = ".".join(path_names)
+    if any(s in joined for s in skip):
+        return False
+    in_dim, out_dim = node["w"].shape[-2:]
+    return min(in_dim, out_dim) >= min_dim
+
+
+def quantize_tree(params: Any, *, min_dim: int = 512,
+                  skip: Sequence[str] = ("gate", "experts"),
+                  bits: int = 8) -> Any:
+    """Convert every eligible {'w','b'} linear to int8 (or packed int4,
+    ``bits=4``). Small layers (below min_dim), the router gate and the MoE
+    expert stacks stay floating point. Works on meta tensors too."""
+    assert bits in (4, 8), bits
+    qfn = quantize_weight if bits == 8 else quantize_weight_int4
+
+    def _walk(node, path):
+        if isinstance(node, dict):
+            if "w" in node and isinstance(node["w"], torch.Tensor):
+                if not _eligible(path, node, min_dim=min_dim, skip=skip):
+                    return node
+                if bits == 4 and node["w"].shape[-2] % 2 != 0:
+                    return node            # odd in-dim: not packable
+                q = qfn(node["w"])
+                if "b" in node:
+                    q["b"] = node["b"]
+                return q
+            return {k: _walk(v, path + (k,)) for k, v in node.items()}
+        return node
+    return _walk(params, ())
+
+
+def quantize_unigen_serving(params: dict, *, base_bits: int = 4,
+                            adapter_block_bits: int = 4) -> dict:
+    """The single-card serving policy: frozen base -> W4; control double/
+    single block stacks -> W4; the other control pieces (shared-expert
+    weave, zero-init add linears, embedders) -> W8. Expert stacks and the
+    router stay floating point."""
+    out = dict(params)
+    out["base"] = quantize_tree(params["base"], bits=base_bits)
+    out["control"] = {
+        k: quantize_tree(v, bits=(adapter_block_bits
+                                  if k in ("double_blocks", "single_blocks")
+                                  else 8))
+        for k, v in params["control"].items()}
+    return out
