@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (unigen_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, in order; any failure exits non-zero:
   1. device: CUDA is required; prints the card's name and power limit.
-  2. build: compiles both CUDA kernels from unigen_tpu_torch/csrc (one nvcc
+  2. build: compiles the CUDA kernels from unigen_tpu_torch/csrc (one nvcc
      per source, started together) into build/kernels.
-  3. kernels: each kernel at the main path's shapes against its plain
+  3. kernels: each kernel at the main paths' shapes against its plain
      PyTorch version on the card (attention bf16 within atol=rtol=1e-2, W4A8
-     bit-identical), with CUDA-event medians of the kernel, the plain version
-     and a library yardstick that the port never calls, beside the bound.
+     bit-identical, the attention backward's dq, dk, dv each within 2e-2 of
+     its largest |value| and 1e-2 relative L2), with CUDA-event medians of
+     the kernel, the plain version and a library yardstick that the port
+     never calls, beside the bound.
   4. slice: the full-width W4A8 UniGen-FLUX (flux_full, 512^2, 4 Euler steps)
      serves four b=1 requests through MicroBatchServer(batch_size=2); the
      launch counters must show every attention and every W4A8 linear of
@@ -19,14 +21,29 @@ Phases, in order; any failure exits non-zero:
      inputs, and that forward and one with the plain versions on the same
      inputs agree within 3e-2 relative L2; a profiled forward gives the
      device time by kernel.
-  5. one JSON line listing the kernels; the last line is the JSON result.
+  5. train: the flow-matching fine-tune step of the same tree (the fp
+     trainable subset in bf16, W4A8 frozen), 512^2, micro-batch 2,
+     accumulation 2, remat "full", 1 warm-up + 4 timed micro-steps through
+     make_train_step on synthetic data from --seed; finite losses, the
+     trainable count, launch counts equal to the config's (remat recompute
+     included), a profiled micro-step, and the trainable gradients of one
+     micro-step against the same step with the plain versions (relative L2
+     within 3e-2).
+  6. trainer: Trainer.step on the same tree with stub encoders, 1 warm-up +
+     2 timed steps: the Trainer upcasts the trainable subset to fp32 and
+     the encoders give fp32 latents and embeddings (as the JAX Trainer
+     runs), so every kernel runs on fp32 activations; finite losses and the
+     config's launch counts.
+  7. one JSON line listing the kernels; the last line is the JSON result.
 It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +59,11 @@ W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
               (1536, 15360, 3072)]
 SEQ_TXT, HW = 512, 32     # 512^2 image -> 64^2 latents -> 32^2 = 1024 tokens
 STEPS, N_REQUESTS, BATCH = 4, 4, 2
+TRAIN_MICRO_STEPS, TRAIN_ACCUM, TRAINER_STEPS = 4, 2, 2
+# split_trainable of the flux_full W4A8 control tree, counted by the JAX
+# package on eval_shape (tests/test_torch_port_train.py holds both to it)
+FLUX_FULL_TRAINABLE = 145_202_432
+BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 
 
 def emit(obj):
@@ -70,23 +92,31 @@ def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def routed(attention, w4a8):
-    """Route the port's kernel calls through the given functions."""
+def routed(attention_fwd, attention_bwd, w4a8):
+    """Route the port's kernel calls, both directions of the attention
+    autograd Function included, through the given functions."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    saved = fa.flash_attention_rope, qm.w4a8_matmul
-    fa.flash_attention_rope, qm.w4a8_matmul = attention, w4a8
+    saved = fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul
+    fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul = (
+        attention_fwd, attention_bwd, w4a8)
     try:
         yield
     finally:
-        fa.flash_attention_rope, qm.w4a8_matmul = saved
+        fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul = saved
 
 
 def plain_kernels():
     """Route the port through the kernels' plain versions on the card."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    return routed(fa.flash_attention_rope_ref, qm.w4a8_matmul_ref)
+
+    def fwd(*args, with_lse=False):
+        return fa.flash_attention_rope_ref(*args), None
+
+    def bwd(q, k, v, o, lse, do, *tables):
+        return fa.flash_attention_rope_bwd_ref(q, k, v, o, do, *tables)
+    return routed(fwd, bwd, qm.w4a8_matmul_ref)
 
 
 def attention_fp64(torch, q, k, v, cos, sin, kcos, ksin):
@@ -97,6 +127,20 @@ def attention_fp64(torch, q, k, v, cos, sin, kcos, ksin):
               ((q, cos, sin), (k, kcos, ksin)))
     p = torch.softmax(qr @ kr.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
     return p @ v.double()
+
+
+def attention_bwd_fp64(torch, q, k, v, do, cos, sin, kcos, ksin):
+    """The backward in float64 from the same bf16-rounded rotated operands the
+    kernels use: the value the kernels and the fp32 plain backward
+    approximate."""
+    from unigen_tpu_torch.ops.rope import apply_rotary
+    qr, kr = (apply_rotary(x, c, s).double().requires_grad_() for x, c, s in
+              ((q, cos, sin), (k, kcos, ksin)))
+    vd = v.double().requires_grad_()
+    p = torch.softmax(qr @ kr.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
+    dqr, dkr, dv = torch.autograd.grad(p @ vd, (qr, kr, vd), do.double())
+    return (apply_rotary(dqr, cos.double(), -sin.double()),
+            apply_rotary(dkr, kcos.double(), -ksin.double()), dv)
 
 
 def shadowed_kernels(torch, checks):
@@ -110,10 +154,12 @@ def shadowed_kernels(torch, checks):
     the record says which of the two is nearer the float64 value."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    kernel_fa, kernel_qm = fa.flash_attention_rope, qm.w4a8_matmul
+    kernel_fa, kernel_bwd, kernel_qm = (fa.flash_attention_rope_fwd,
+                                        fa.flash_attention_rope_bwd, qm.w4a8_matmul)
 
-    def attention(*args):
-        out, ref = kernel_fa(*args), fa.flash_attention_rope_ref(*args)
+    def attention(*args, with_lse=False):
+        (out, lse), ref = (kernel_fa(*args, with_lse=with_lse),
+                           fa.flash_attention_rope_ref(*args))
         o, r = out.float(), ref.float()
         err, scale = (o - r).abs().max().item(), r.abs().max().item()
         rec = dict(shape=list(args[0].shape) + [args[1].shape[2]], max_abs_err=err,
@@ -124,7 +170,7 @@ def shadowed_kernels(torch, checks):
                        kernel_vs_fp64=(out.double() - truth).abs().max().item(),
                        plain_vs_fp64=(ref.double() - truth).abs().max().item())
         checks["flash_attention_rope"].append(rec)
-        return out
+        return out, lse
 
     def w4a8(*args):
         out, ref = kernel_qm(*args), qm.w4a8_matmul_ref(*args)
@@ -133,17 +179,17 @@ def shadowed_kernels(torch, checks):
             ok=torch.equal(out, ref)))
         return out
 
-    return routed(attention, w4a8)
+    return routed(attention, kernel_bwd, w4a8)
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, seed):
     import torch.nn.functional as F
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.quant import _int_mm, unpack_int4
     from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = {"flash_attention_rope": [], "w4a8_matmul": []}
 
     def ids(n):
@@ -202,15 +248,118 @@ def phase_kernels(torch, dev):
                    bound_ms=bms, bound_by=by)
         emit(row)
         rows["w4a8_matmul"].append(row)
+    rows.update(backward_rows(torch, dev, g, ids))
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     return rows
 
 
-def device_breakdown(torch, fn):
-    """Device time of one forward by kernel (torch.profiler), beside the
-    forward's wall time measured without the profiler."""
+def backward_rows(torch, dev, g, ids):
+    """The attention backward at the training path's shapes: checked against
+    the fp32 plain backward at b=1 and b=2 (B*H = 24 and 48), timed at b=1:
+    the whole backward (the D pass plus both kernels), each kernel alone,
+    the plain versions of the same outputs, and the backward of
+    scaled_dot_product_attention on pre-rotated q, k as the library
+    yardstick. Bound: 10*B*H*Sq*Skv*D operations for the whole (the count
+    the JAX kernel states), 6 and 8 for the dQ and the dK/dV kernel (the
+    products each needs: S, dP and dQ; S, dP, dV and dK), against q, k, v,
+    O, dO, lse (and the D rows for one kernel) read once and the outputs
+    written once."""
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
+    rows = {"flash_attention_rope_bwd": [], BWD_NAMES[0]: [], BWD_NAMES[1]: []}
+    for b_mult in (1, 2):
+        for b, h, sq, skv, ident in ATTN_CASES:
+            b *= b_mult
+            d = fa.HEAD_DIM
+            cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
+            kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
+            kcos = torch.cat([kcos, torch.ones(ident, d, device=dev)])
+            ksin = torch.cat([ksin, torch.zeros(ident, d, device=dev)])
+            tabs = (cos, sin, kcos, ksin)
+            q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
+                           for s in (sq, skv, skv, sq))
+            out, lse = fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
+            got = fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs)
+            errs = {}
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                x, y = x.float(), y.float()
+                errs[name] = dict(max_abs_err=(x - y).abs().max().item(),
+                                  max_abs=y.abs().max().item(),
+                                  rel_l2=((x - y).norm() / y.norm()).item())
+            ok = all(e["max_abs_err"] <= 2e-2 * e["max_abs"] and e["rel_l2"] <= 1e-2
+                     for e in errs.values())
+            row = dict(kernel="flash_attention_rope_bwd", b=b, h=h, sq=sq, skv=skv,
+                       identity_rows=ident, errors=errs,
+                       max_abs_err=max(e["max_abs_err"] for e in errs.values()), ok=ok)
+            if not ok:
+                truth = attention_bwd_fp64(torch, q, k, v, do, *tabs)
+                row["kernel_vs_fp64"] = [(x.double() - t).abs().max().item()
+                                         for x, t in zip(got, truth)]
+                row["plain_vs_fp64"] = [(x.double() - t).abs().max().item()
+                                        for x, t in zip(want, truth)]
+            if b_mult == 1:
+                bh = b * h
+                io = 2.0 * (3 * bh * sq * d + 2 * bh * skv * d) + 4.0 * bh * sq
+                bms, by = bound(10.0 * bh * sq * skv * d, BF16_FLOPS,
+                                io + 2.0 * (bh * sq * d + 2 * bh * skv * d))
+                drow = (do.float() * out.float()).sum(-1)
+                kargs = (q, k, v, do, lse, drow, *tabs)
+                qr = apply_rotary(q, cos, sin).requires_grad_()
+                kr = apply_rotary(k, kcos, ksin).requires_grad_()
+                vr = v.clone().requires_grad_()
+                lib_out = F.scaled_dot_product_attention(qr, kr, vr)
+
+                def plain_dq():
+                    _, kr32, _, ds, _ = fa._bwd_ref_parts(q, k, v, out, do, *tabs)
+                    return apply_rotary(ds @ kr32, cos, -sin).to(q.dtype)
+
+                def plain_dkv():
+                    qr32, _, p, ds, dof = fa._bwd_ref_parts(q, k, v, out, do, *tabs)
+                    return (apply_rotary(ds.transpose(-1, -2) @ qr32, kcos, -ksin),
+                            p.transpose(-1, -2) @ dof)
+
+                def lib(*wrt):
+                    return lambda: torch.autograd.grad(lib_out, wrt, do,
+                                                       retain_graph=True)
+                row.update(ms=median_ms(lambda: fa.flash_attention_rope_bwd(
+                               q, k, v, out, lse, do, *tabs)),
+                           plain_ms=median_ms(lambda: fa.flash_attention_rope_bwd_ref(
+                               q, k, v, out, do, *tabs)),
+                           library_ms=median_ms(lib(qr, kr, vr)),
+                           bound_ms=bms, bound_by=by)
+                per_kernel = (
+                    (BWD_NAMES[0], 6, 2.0 * bh * sq * d,
+                     lambda: fa.flash_attention_rope_bwd_dq(*kargs), plain_dq, lib(qr)),
+                    (BWD_NAMES[1], 8, 4.0 * bh * skv * d,
+                     lambda: fa.flash_attention_rope_bwd_dkv(*kargs), plain_dkv,
+                     lib(kr, vr)))
+                for name, n_ops, out_bytes, kern, plain, library in per_kernel:
+                    kb, kby = bound(n_ops * bh * sq * skv * d, BF16_FLOPS,
+                                    io + 4.0 * bh * sq + out_bytes)
+                    krow = dict(kernel=name, b=b, h=h, sq=sq, skv=skv,
+                                identity_rows=ident, ok=ok,
+                                max_abs_err=(errs["dq"]["max_abs_err"] if name == BWD_NAMES[0]
+                                             else max(errs["dk"]["max_abs_err"],
+                                                      errs["dv"]["max_abs_err"])),
+                                ms=median_ms(kern), plain_ms=median_ms(plain),
+                                library_ms=median_ms(library), bound_ms=kb,
+                                bound_by=kby)
+                    emit(krow)
+                    rows[name].append(krow)
+            emit(row)
+            rows["flash_attention_rope_bwd"].append(row)
+            del got, want, out, lse
+    return rows
+
+
+def device_breakdown(torch, fn, phase="profile", **extra):
+    """Device time of one call of ``fn`` by kernel (torch.profiler), beside
+    its wall time measured without the profiler."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -226,16 +375,18 @@ def device_breakdown(torch, fn):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0, "library gemm": 0.0,
-              "other": 0.0}
+    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0,
+              "flash_attention_rope_bwd": 0.0, "library gemm": 0.0, "other": 0.0}
     for name, us in by_name.items():
         key = ("w4a8_matmul" if "w4a8" in name else
+               "flash_attention_rope_bwd" if "flash_rope_bwd" in name else
                "flash_attention_rope" if "flash_rope" in name else
-               "library gemm" if any(t in name.lower() for t in ("gemm", "cutlass", "xmma"))
+               "library gemm" if any(t in name.lower() for t in
+                                     ("gemm", "cutlass", "xmma", "nvjet"))
                else "other")
         groups[key] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    emit(dict(phase="profile", forward_batch=BATCH, wall_ms=wall_us / 1e3,
+    emit(dict(phase=phase, **extra, wall_ms=wall_us / 1e3,
               device_busy_ms=busy / 1e3,
               device_idle_share=(1 - busy / wall_us) if busy else None,
               groups_ms={k: v / 1e3 for k, v in groups.items()},
@@ -253,6 +404,26 @@ def expected_launches(params, cfg):
     attn = (2 * bb.num_layers + 2 * bb.num_single_layers
             + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
     return attn, w4
+
+
+def expected_train_launches(params, cfg):
+    """Kernel launches of one training micro-step with remat "full" and a
+    frozen base: every forward call of expected_launches, plus the forward
+    that each remat body (base + control double block i >= 1, base +
+    control single block) runs again in the backward; one backward per
+    attention call except base double block 0, which sees no trainable
+    input."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    bb, cc = cfg.flux, cfg.control
+    attn_pf, w4_pf = expected_launches(params, cfg)
+    single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
+    attn_again = 2 * (bb.num_layers - 1) + (2 if single_ctrl else 1) * bb.num_single_layers
+    again = {"double_blocks": bb.num_layers - 1, "single_blocks": bb.num_single_layers}
+    w4_again = sum(again.get(path[1], 0) for path, _ in tree_leaves_with_path(params)
+                   if path[-1] == "w_q4")
+    return {"flash_attention_rope": attn_pf + attn_again,
+            BWD_NAMES[0]: attn_pf - 1, BWD_NAMES[1]: attn_pf - 1,
+            "w4a8_matmul": w4_pf + w4_again}
 
 
 def phase_slice(torch, dev):
@@ -371,7 +542,7 @@ def phase_slice(torch, dev):
           f"{int((pred_k != pred_p).sum())} of {pred_p.numel()} values differ", flush=True)
 
     with torch.no_grad():
-        device_breakdown(torch, forward_fn(warm))
+        device_breakdown(torch, forward_fn(warm), forward_batch=BATCH)
     result = dict(phase="slice", requests=N_REQUESTS, batches=srv.stats.batches,
                   steps=STEPS, seconds=dt, images_per_s=N_REQUESTS / dt,
                   ms_per_denoise_step=dt / forwards * 1e3,
@@ -382,10 +553,194 @@ def phase_slice(torch, dev):
     emit(result)
     if not (rel <= 3e-2):
         raise SystemExit(f"kernel forward differs from plain: rel L2 {rel}")
+    return params, launches
+
+
+def phase_train(torch, dev, params, seed):
+    """The full-width fine-tune step (bench.py run_full's configuration) on
+    the serving tree of phase 4: trainable = its float leaves (bf16), frozen
+    = the W4A8/W8A8 codes and scales."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.config import TrainConfig
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    from unigen_tpu_torch.ops.quant import split_trainable
+    from unigen_tpu_torch.train import train_step as ts
+    from unigen_tpu_torch.utils import tree_leaves, tree_map
+
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    tcfg = TrainConfig(train_batch_size=BATCH, remat="full",
+                       gradient_accumulation_steps=TRAIN_ACCUM)
+    trainable, frozen = split_trainable(params["control"])
+    n_train = sum(t.numel() for t in tree_leaves(trainable))
+    if n_train != FLUX_FULL_TRAINABLE:
+        raise SystemExit(f"trainable count {n_train} != {FLUX_FULL_TRAINABLE}")
+    base_arg = {"base": params["base"], "control_frozen": frozen}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = 2 * HW                      # 64^2 latents for 512^2 images
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+    c = bb.in_channels // 4           # 16 VAE channels, packed 2x2 -> 64
+    batch = dict(latents=mk(BATCH, c, lat, lat), condition_latents=mk(BATCH, c, lat, lat),
+                 prompt_embeds=mk(BATCH, SEQ_TXT, bb.joint_attention_dim),
+                 pooled=mk(BATCH, bb.pooled_projection_dim),
+                 condition_pooled=mk(BATCH, bb.pooled_projection_dim))
+    step = ts.make_train_step(cfg, tcfg)
+    state = ts.init_train_state(trainable, tcfg)
+    t0 = time.time()
+    state, m = step(state, base_arg, batch, g)            # warm-up micro-step
+    torch.cuda.synchronize()
+    print(f"# train: warm-up micro-step {time.time() - t0:.2f}s, "
+          f"loss {float(m['step_loss']):.5g}", flush=True)
+
+    def counts():
+        return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
+                BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches}
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = qm.launches = 0
+    losses, step_ms = [], []
+    for _ in range(TRAIN_MICRO_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, base_arg, batch, g)
+        losses.append(float(m["step_loss"]))              # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_train_launches(params, cfg)
+    want = {k: n * TRAIN_MICRO_STEPS for k, n in per_step.items()}
+    result = dict(phase="train", micro_steps=TRAIN_MICRO_STEPS, micro_batch=BATCH,
+                  accumulation=TRAIN_ACCUM, remat=tcfg.remat,
+                  optimizer_updates=state.opt_state.count,
+                  losses=losses, step_ms=step_ms,
+                  ms_per_micro_step=statistics.median(step_ms),
+                  samples_per_s=BATCH / (statistics.median(step_ms) / 1e3),
+                  peak_bytes=peak, trainable_elements=n_train,
+                  launches=launches, expected_launches=want,
+                  grad_norm=float(m["grad_norm"]), lr=m["lr"])
+    emit(result)
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"non-finite training loss: {losses}")
+    if launches != want:
+        raise SystemExit(f"train launches {launches} != expected {want}")
+
+    # a profiled micro-step: device time by kernel group, idle share
+    device_breakdown(torch, lambda: step(state, base_arg, batch, g),
+                     phase="train_profile", micro_batch=BATCH)
+
+    # gradients of one micro-step with the kernels and with the plain versions
+    draws = ts.draw(batch, g)
+    builder = ts.make_loss_builder(cfg, tcfg)
+
+    def grads():
+        leaves = tree_map(lambda x: x.detach().requires_grad_(), trainable)
+        flat = tree_leaves(leaves)
+        loss, _ = builder(base_arg, batch, draws)(leaves)
+        out = torch.autograd.grad(loss, flat, allow_unused=True)
+        return float(loss.detach()), [torch.zeros_like(t) if x is None else x
+                             for t, x in zip(flat, out)]
+    t0 = time.time()
+    loss_k, grad_k = grads()
+    with plain_kernels():
+        loss_p, grad_p = grads()
+    num = sum((a.float() - b.float()).square().sum() for a, b in zip(grad_k, grad_p))
+    den = sum(b.float().square().sum() for b in grad_p)
+    rel = (num / den).sqrt().item()
+    cos = [torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                                 dim=0).item()
+           for a, b in zip(grad_k, grad_p) if b.float().norm() > 0]
+    emit(dict(phase="train_grad_check",
+              depth=f"{bb.num_layers} double / {bb.num_single_layers} single (full)",
+              loss_kernels=loss_k, loss_plain=loss_p, rel_l2=rel, leaves=len(grad_p),
+              worst_leaf_cosine=min(cos), seconds=time.time() - t0,
+              note="the MoE gather's backward is a scatter-add with atomics: "
+                   "its bits change from run to run"))
+    if not (rel <= 3e-2):
+        raise SystemExit(f"kernel gradients differ from plain: rel L2 {rel}")
     return launches
 
 
+def phase_trainer(torch, dev, params, seed):
+    """Trainer.step at full width with stub encoders that give fp32 latents
+    (a seeded 8x8 average pool and 3 -> 16 channel projection of the pixels)
+    and fp32 text embeddings (seeded Gaussians)."""
+    import numpy as np
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.config import TrainConfig
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    from unigen_tpu_torch.ops.quant import split_trainable
+    from unigen_tpu_torch.train.loop import Trainer
+    from unigen_tpu_torch.utils import tree_leaves
+
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    proj = torch.randn(3, bb.in_channels // 4, generator=g, device=dev)
+
+    def encode_text(prompts):
+        n = len(prompts)
+        return {"prompt_embeds": torch.randn(n, SEQ_TXT, bb.joint_attention_dim,
+                                             generator=g, device=dev),
+                "pooled": torch.randn(n, bb.pooled_projection_dim, generator=g,
+                                      device=dev)}
+
+    def encode_images(pixels):
+        x = torch.nn.functional.avg_pool2d(torch.as_tensor(pixels, device=dev), 8)
+        return torch.einsum("bchw,cd->bdhw", x, proj)
+
+    trainable, frozen = split_trainable(params["control"])
+    trainer = Trainer(cfg, TrainConfig(train_batch_size=BATCH, remat="full",
+                                       gradient_accumulation_steps=TRAIN_ACCUM,
+                                       seed=seed),
+                      base_params={"base": params["base"], "control_frozen": frozen},
+                      control_params=trainable, encode_text=encode_text,
+                      encode_images=encode_images, device=dev)
+    host = np.random.default_rng(seed)
+    px = 16 * HW                      # 512^2 pixels
+
+    def batch():
+        return {"descriptions": ["a photo"] * BATCH, "task_names": ["canny"] * BATCH,
+                "pixel_values": host.uniform(-1, 1, (BATCH, 3, px, px)).astype(np.float32),
+                "condition_pixels": host.uniform(-1, 1, (BATCH, 3, px, px)).astype(np.float32)}
+    t0 = time.time()
+    m = trainer.step(batch())                              # warm-up step
+    print(f"# trainer: warm-up step {time.time() - t0:.2f}s, "
+          f"loss {float(m['step_loss']):.5g}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = qm.launches = 0
+    losses, step_ms = [], []
+    for _ in range(TRAINER_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.step(batch())
+        losses.append(float(m["step_loss"]))              # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
+                BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches}
+    want = {k: n * TRAINER_STEPS for k, n in expected_train_launches(params, cfg).items()}
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(trainer.state.control)})
+    emit(dict(phase="trainer", steps=TRAINER_STEPS, micro_batch=BATCH,
+              accumulation=TRAIN_ACCUM, trainable_dtypes=dtypes,
+              input_dtype=str(trainer.prepare_batch(batch())["latents"].dtype),
+              losses=losses,
+              step_ms=step_ms, peak_bytes=torch.cuda.max_memory_allocated(),
+              global_step=trainer.global_step,
+              optimizer_updates=trainer.state.opt_state.count,
+              launches=launches, expected_launches=want))
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"non-finite Trainer loss: {losses}")
+    if launches != want or dtypes != ["torch.float32"]:
+        raise SystemExit(f"Trainer launches {launches} != expected {want}, "
+                         f"trainable dtypes {dtypes}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                     "port on one NVIDIA card")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the kernel inputs and the training data")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
@@ -408,33 +763,49 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    logs = build.build_all([fa.KERNEL, qm.KERNEL])
+    logs = build.build_all([fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL])
     print(f"# build: {time.time() - t0:.1f}s from {build.CSRC}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
 
-    # 3. kernels at the main path's shapes
-    rows = phase_kernels(torch, dev)
+    # 3. kernels at the main paths' shapes
+    rows = phase_kernels(torch, dev, args.seed)
 
-    # 4. the slice
-    launches = phase_slice(torch, dev)
+    # 4. the serving slice
+    params, serving = phase_slice(torch, dev)
 
-    # 5. kernels line: the dominant main-path shape of each kernel
-    sources = {"flash_attention_rope": ("unigen_tpu_torch/csrc/flash_attention_rope.cu",
-                                        "unigen_tpu/ops/pallas/flash_attention.py:128"),
-               "w4a8_matmul": ("unigen_tpu_torch/csrc/w4a8_matmul.cu",
-                               "unigen_tpu/ops/pallas/quant_matmul.py:57")}
+    # 5. the training slice
+    launches = phase_train(torch, dev, params, args.seed)
+
+    # 6. the Trainer on the same tree, fp32 activations
+    phase_trainer(torch, dev, params, args.seed)
+
+    # 7. kernels line: the dominant main-path shape of each kernel; launches
+    # from the training run (the serving run's beside the forward kernels)
+    pallas = "unigen_tpu/ops/pallas/"
+    sources = {
+        "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128", None),
+        "w4a8_matmul": ("w4a8_matmul.cu", "quant_matmul.py:57", None),
+        BWD_NAMES[0]: ("flash_attention_rope_bwd.cu", "flash_attention.py:904",
+                       pallas + "flash_attention.py:670"),
+        BWD_NAMES[1]: ("flash_attention_rope_bwd.cu", "flash_attention.py:958",
+                       pallas + "flash_attention.py:670")}
     kernels = []
-    for name, (src, replaces) in sources.items():
-        rep = rows[name][0] if name == "flash_attention_rope" else rows[name][1]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name],
+    for name, (src, replaces, also) in sources.items():
+        rep = rows[name][1] if name == "w4a8_matmul" else rows[name][0]
+        entry = dict(
+            name=name, route="cuda", source="unigen_tpu_torch/csrc/" + src,
+            replaces=pallas + replaces, launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep["library_ms"]))
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"])
+        if also:
+            entry["also_replaces"] = also
+        if name in serving:
+            entry["serving_launches"] = serving[name]
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
-NVIDIA card. Marked ``cuda``; without a card they skip. This file imports
+NVIDIA card (the attention forward, its backward and the W4A8 matmul). Marked ``cuda``; without a card they skip. This file imports
 no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -32,17 +32,21 @@ def card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sq,skv,n_identity", [(130, 257, 0), (1536, 2048, 512)])
-def test_attention_kernel_matches_plain_on_card(card, sq, skv, n_identity):
+def test_attention_kernel_matches_plain_on_card(card, sq, skv, n_identity, dtype):
+    """bf16, and fp32 inputs (rounded to bf16 for the tensor cores, written
+    in fp32), within atol=rtol=1e-2 of the plain version in the same dtype."""
     g = torch.Generator(device=card).manual_seed(0)
     tabs = _tables(sq, skv, n_identity, card)
-    q, k, v = (torch.randn(1, 4, s, 128, device=card, generator=g).bfloat16()
+    q, k, v = (torch.randn(1, 4, s, 128, device=card, generator=g).to(dtype)
                for s in (sq, skv, skv))
     before = t_fa.launches
     out = t_fa.flash_attention_rope(q, k, v, *tabs)
     torch.cuda.synchronize()
     assert t_fa.launches == before + 1
     ref = t_fa.flash_attention_rope_ref(q, k, v, *tabs)
+    assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
 
 
@@ -58,3 +62,60 @@ def test_w4a8_kernel_bit_identical_on_card(card, m, k, n):
         out = t_qm.w4a8_matmul(xq, xs, w, ws, dtype)
         torch.cuda.synchronize()
         assert torch.equal(out, t_qm.w4a8_matmul_ref(xq, xs, w, ws, dtype))
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,n_identity,dtype", [
+    (1, 130, 257, 0, torch.bfloat16), (1, 200, 96, 40, torch.bfloat16),
+    (2, 1536, 2048, 512, torch.bfloat16), (1, 2560, 2560, 0, torch.bfloat16),
+    (1, 200, 96, 40, torch.float32), (2, 1536, 2048, 512, torch.float32)])
+def test_attention_backward_kernels_match_plain_on_card(card, b, sq, skv, n_identity,
+                                                        dtype):
+    """dq, dk, dv within 2e-2 of each one's largest |value| and 1e-2 relative
+    L2 of the fp32 plain backward: the kernels round the rotated operands,
+    P and dS to bf16 for the tensor cores, the plain version does not (fp32
+    inputs too: they are rounded to bf16 where they are staged). The
+    forward's lse is the row log-sum-exp of its own bf16-rounded logits."""
+    g = torch.Generator(device=card).manual_seed(2)
+    tabs = _tables(sq, skv, n_identity, card)
+    q, k, v, do = (torch.randn(b, 3, s, 128, device=card, generator=g).to(dtype)
+                   for s in (sq, skv, skv, sq))
+    out, lse = t_fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
+    before = (t_fa.dq_launches, t_fa.dkv_launches)
+    got = t_fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
+    torch.cuda.synchronize()
+    assert (t_fa.dq_launches, t_fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    want = t_fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        assert (x.float() - y.float()).abs().max().item() <= 2e-2 * y.float().abs().max().item()
+        assert _rel_l2(x, y) <= 1e-2
+    from unigen_tpu_torch.ops.rope import apply_rotary
+    qr, kr = (apply_rotary(x, c, s_).bfloat16().float()
+              for x, c, s_ in ((q, tabs[0], tabs[1]), (k, tabs[2], tabs[3])))
+    logits = (qr @ kr.transpose(-1, -2)) / 128 ** 0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attention_autograd_runs_kernels_on_card(card):
+    """torch.autograd through flash_attention_rope launches the forward and
+    both backward kernels once each, and agrees with autograd of the plain
+    forward."""
+    g = torch.Generator(device=card).manual_seed(3)
+    tabs = _tables(96, 160, 32, card)
+    leaves = [torch.randn(1, 2, s, 128, device=card, generator=g).bfloat16()
+              .requires_grad_() for s in (96, 160, 160)]
+    before = (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches)
+    out = t_fa.flash_attention_rope(*leaves, *tabs)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    assert (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    ref = t_fa.flash_attention_rope_ref(*leaves, *tabs)
+    want = torch.autograd.grad(ref.float().square().sum(), leaves)
+    for x, y in zip(grads, want):
+        assert _rel_l2(x, y) <= 2e-2

@@ -1,15 +1,16 @@
 """Config dataclasses of the FLUX family (a copy of ``unigen_tpu/config.py``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-Only the FLUX pieces the serving slice reads are here: the backbone, the
-control branch with its MoE, and the model config that joins them.
+Only the FLUX pieces the port reads are here: the backbone, the control
+branch with its MoE, the model config that joins them, and the training
+hyperparameters.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -97,6 +98,37 @@ class UniGenConfig:
     @property
     def backbone(self) -> FluxBackboneConfig:
         return self.flux
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference train.py defaults)."""
+    learning_rate: float = 1e-4
+    lr_scheduler: str = "cosine"
+    lr_warmup_steps: int = 500
+    max_train_steps: int = 30000
+    train_batch_size: int = 1              # per-process micro batch
+    gradient_accumulation_steps: int = 1
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_weight_decay: float = 1e-2
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    weighting_scheme: str = "none"         # sigma_sqrt|logit_normal|mode|cosmap|none
+    guidance_scale: float = 3.5
+    max_sequence_length: int = 512
+    resolution: int = 512
+    seed: int = 12443
+    mixed_precision: str = "bf16"
+    checkpointing_steps: int = 1000
+    # activation rematerialisation (utils.remat_wrap): True/"full",
+    # False/"none"; "dots" waits for a later slice of the port
+    remat: Union[bool, str] = True
+    # LoRA fine-tuning mode (rank > 0) waits for models/lora.py
+    lora_rank: int = 0
+    lora_targets: tuple = ()
+    lora_scale: float = 1.0
+    lora_adapter_name: str = "default"
 
 
 def tiny_flux_config(**overrides) -> FluxBackboneConfig:

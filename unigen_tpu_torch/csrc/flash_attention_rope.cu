@@ -6,8 +6,9 @@
 //
 //   out = softmax( rot(q) . rot(k)^T / sqrt(D) ) . v
 //
-// q [BH, Sq, D], k and v [BH, Skv, D] in bf16, D = 128; cos/sin [Sq, D] and
-// kcos/ksin [Skv, D] in f32. rot() is the interleaved-pair rotation
+// q [BH, Sq, D], k and v [BH, Skv, D] in bf16 (or fp32: the Trainer's fp32
+// activations; rounded to bf16 where they are staged, out written in fp32),
+// D = 128; cos/sin [Sq, D] and kcos/ksin [Skv, D] in f32. rot() is the interleaved-pair rotation
 // x*cos + rotate_pairs(x)*sin with rotate_pairs(x0, x1, ..) = (-x1, x0, ..),
 // taken in fp32 and rounded to bf16 before the QK^T product, as the Pallas
 // kernel does. K-side tables may carry identity rows (cos=1, sin=0) for
@@ -30,6 +31,10 @@
 // The ragged KV tail is masked to -inf, Q rows past Sq are not stored.
 // Because every block re-rotates K, rotation work is Skv*D per Q tile, small
 // next to the 2*64*Skv*D product flops of the tile.
+// Under autograd the kernel also writes the fp32 row log-sum-exp
+// lse = ln(sum_j exp(s_j / sqrt(D))) [BH, Sq] from its running max and sum,
+// the counterpart of the Pallas `_lse_rope_kernel` (:841): the backward
+// (flash_attention_rope_bwd.cu) recomputes P = exp(s / sqrt(D) - lse) from it.
 // Not yet: cp.async/TMA double buffering, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
@@ -37,82 +42,40 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int D = 128;
+using attn::D;
+using attn::LD;
+using attn::mma_bf16;
+using attn::pack_bf16;
+using attn::pack_raw;
+
 constexpr int BQ = 64;       // 4 warps x 16 rows
 constexpr int BKV = 64;
-constexpr int LD = D + 8;    // shared row stride in bf16 (conflict-free)
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Stage rows [r0, r0+64) of x (row length D) into shared memory, rotated by
-// the table rows when cos != nullptr. Rows at or past n are zeros.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* x,
+template <typename T>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* x,
                                            const float* cos, const float* sin,
                                            int r0, int n) {
-  for (int c = threadIdx.x; c < 64 * D / 8; c += THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-    const int row = r0 + r;
-    uint4 packed = make_uint4(0, 0, 0, 0);
-    if (row < n) {
-      packed = *reinterpret_cast<const uint4*>(x + (size_t)row * D + col);
-      if (cos != nullptr) {
-        const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&packed);
-        const float4 c0 = *reinterpret_cast<const float4*>(cos + (size_t)row * D + col);
-        const float4 c1 = *reinterpret_cast<const float4*>(cos + (size_t)row * D + col + 4);
-        const float4 s0 = *reinterpret_cast<const float4*>(sin + (size_t)row * D + col);
-        const float4 s1 = *reinterpret_cast<const float4*>(sin + (size_t)row * D + col + 4);
-        const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        const float sn[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-        uint32_t w[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const float x0 = __bfloat162float(xv[2 * p]);
-          const float x1 = __bfloat162float(xv[2 * p + 1]);
-          // x*cos + rot*sin with separate roundings, as the plain version
-          const float o0 = __fadd_rn(__fmul_rn(x0, cs[2 * p]),
-                                     __fmul_rn(-x1, sn[2 * p]));
-          const float o1 = __fadd_rn(__fmul_rn(x1, cs[2 * p + 1]),
-                                     __fmul_rn(x0, sn[2 * p + 1]));
-          w[p] = pack_bf16(o0, o1);
-        }
-        packed = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = packed;
-  }
+  attn::stage_rows<64, THREADS>(dst, x, cos, sin, r0, n);
 }
 
+// T = __nv_bfloat16 or float: the dtype of q, k, v and out; the products run
+// on bf16 operands either way.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_rope_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+flash_rope_kernel(const T* __restrict__ q,
+                  const T* __restrict__ k,
+                  const T* __restrict__ v,
                   const float* __restrict__ qcos,
                   const float* __restrict__ qsin,
                   const float* __restrict__ kcos,
                   const float* __restrict__ ksin,
-                  __nv_bfloat16* __restrict__ out, int Sq, int Skv,
+                  T* __restrict__ out,
+                  float* __restrict__ lse, int Sq, int Skv,
                   float scale_log2) {
   // Ks doubles as the Q staging buffer before the first K tile.
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LD];
@@ -121,9 +84,9 @@ flash_rope_kernel(const __nv_bfloat16* __restrict__ q,
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * Sq * D;
-  const __nv_bfloat16* kb = k + (size_t)bh * Skv * D;
-  const __nv_bfloat16* vb = v + (size_t)bh * Skv * D;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* kb = k + (size_t)bh * Skv * D;
+  const T* vb = v + (size_t)bh * Skv * D;
 
   // rotated Q tile -> A fragments of this warp's 16 rows
   stage_rows(Ks, qb, qcos, qsin, q0, Sq);
@@ -226,28 +189,42 @@ flash_rope_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = q0 + warp * 16 + g + h * 8;
     if (row >= Sq) continue;
     const float inv = 1.f / l_run[h];
-    __nv_bfloat16* orow = out + ((size_t)bh * Sq + row) * D;
+    if (lse != nullptr && tig == 0)      // logits were scaled by log2(e)
+      lse[(size_t)bh * Sq + row] = (m_run[h] + log2f(l_run[h])) * 0.69314718f;
+    T* orow = out + ((size_t)bh * Sq + row) * D;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(orow + nd * 8 + tig * 2) =
-          pack_bf16(o[nd][2 * h] * inv, o[nd][2 * h + 1] * inv);
-    }
+    for (int nd = 0; nd < D / 8; ++nd)
+      attn::store2(orow + nd * 8 + tig * 2, o[nd][2 * h] * inv,
+                   o[nd][2 * h + 1] * inv);
   }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* qcos,
+           const void* qsin, const void* kcos, const void* ksin, void* out,
+           void* lse, int BH, int Sq, int Skv, float scale_log2,
+           void* stream) {
+  const dim3 grid((Sq + BQ - 1) / BQ, BH);
+  flash_rope_kernel<T><<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(qcos),
+      static_cast<const float*>(qsin), static_cast<const float*>(kcos),
+      static_cast<const float*>(ksin), static_cast<T*>(out),
+      static_cast<float*>(lse), Sq, Skv, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// fp32 != 0: q, k, v and out are fp32, else bf16.
 extern "C" int flash_attention_rope(const void* q, const void* k, const void* v,
                                     const void* qcos, const void* qsin,
                                     const void* kcos, const void* ksin,
-                                    void* out, int BH, int Sq, int Skv,
-                                    float scale_log2, void* stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_rope_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(qcos),
-      static_cast<const float*>(qsin), static_cast<const float*>(kcos),
-      static_cast<const float*>(ksin), static_cast<__nv_bfloat16*>(out), Sq, Skv,
-      scale_log2);
-  return static_cast<int>(cudaGetLastError());
+                                    void* out, void* lse, int BH, int Sq,
+                                    int Skv, float scale_log2, int fp32,
+                                    void* stream) {
+  return fp32 ? launch<float>(q, k, v, qcos, qsin, kcos, ksin, out, lse, BH,
+                              Sq, Skv, scale_log2, stream)
+              : launch<__nv_bfloat16>(q, k, v, qcos, qsin, kcos, ksin, out, lse,
+                                      BH, Sq, Skv, scale_log2, stream);
 }

@@ -4,8 +4,11 @@ directly on the card.
 ``tree_from_numpy`` takes the nested dict of numpy arrays that
 ``jax.tree.map(np.asarray, params)`` gives and returns the port's tree with
 the same keys, dtypes and shapes: bf16 (``ml_dtypes.bfloat16``) becomes
-``torch.bfloat16`` bit for bit, int8 codes stay int8. This module never
-imports JAX.
+``torch.bfloat16`` bit for bit, int8 codes stay int8, and None leaves (the
+two halves of ``split_trainable``) stay None. ``opt_state_from_optax`` does
+the same for an optax ``MultiSteps(chain(clip_by_global_norm, adamw))``
+state (or the chain alone) after ``jax.tree.map(np.asarray, state)``,
+giving the port's ``train_step.OptState``. This module never imports JAX.
 
 ``init_quantized_serving_params`` is the counterpart of the reference
 bench's direct quantized init: the W4A8 serving tree's shapes come from the
@@ -22,6 +25,7 @@ import torch
 from unigen_tpu_torch.config import UniGenConfig
 from unigen_tpu_torch.models.unigen_flux import init_unigen_flux_params
 from unigen_tpu_torch.ops.quant import quantize_unigen_serving
+from unigen_tpu_torch.train.train_step import OptState
 from unigen_tpu_torch.utils import resolve_device, tree_map
 
 
@@ -33,10 +37,44 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def tree_from_numpy(tree, device=None):
-    """Nested dict (or list/tuple) of numpy arrays -> the same structure of
-    tensors on ``device`` (CUDA unless "cpu" is named)."""
+    """Nested dict (or list/tuple) of numpy arrays, None leaves allowed ->
+    the same structure of tensors on ``device`` (CUDA unless "cpu" is named)."""
     dev = resolve_device(device)
     return tree_map(lambda a: _to_tensor(a, dev), tree)
+
+
+def _states(node):
+    """Every optax state record inside nested tuples, depth first."""
+    if hasattr(node, "_fields"):
+        yield node
+        for v in node:
+            if isinstance(v, tuple):
+                yield from _states(v)
+    elif isinstance(node, tuple):
+        for v in node:
+            yield from _states(v)
+
+
+def opt_state_from_optax(state, device=None) -> OptState:
+    """An optax state with numpy leaves -> ``OptState`` on ``device``: the
+    adam moments and count, the schedule count (always equal to the adam
+    count in this chain), and MultiSteps' mini_step, gradient_step and
+    accumulated gradients where present."""
+    dev = resolve_device(device)
+    multi = getattr(state, "mini_step", None) is not None
+    inner = state.inner_opt_state if multi else state
+    adam = [s for s in _states(inner) if "mu" in s._fields]
+    counts = {int(s.count) for s in _states(inner) if "count" in s._fields}
+    if len(adam) != 1 or len(counts) != 1:
+        raise ValueError("expected one adam state and one shared count in the "
+                         f"optax chain, got {len(adam)} and {sorted(counts)}")
+    out = OptState(count=counts.pop(), mu=tree_from_numpy(adam[0].mu, dev),
+                   nu=tree_from_numpy(adam[0].nu, dev))
+    if multi:
+        out = out._replace(mini_step=int(state.mini_step),
+                           gradient_step=int(state.gradient_step),
+                           acc_grads=tree_from_numpy(state.acc_grads, dev))
+    return out
 
 
 def init_quantized_serving_params(cfg: UniGenConfig, device=None,

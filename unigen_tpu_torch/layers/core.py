@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from unigen_tpu_torch.utils import promote
+
 
 def _uniform(shape, bound: float, *, gen, device, dtype) -> torch.Tensor:
     return torch.empty(shape, device=device, dtype=dtype).uniform_(
@@ -46,7 +48,8 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
         from unigen_tpu_torch.ops.quant import int4_matmul
         y = int4_matmul(x, p["w_q4"], p["w_scale"])
     else:
-        y = x @ p["w"]
+        x, w = promote(x, p["w"])
+        y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

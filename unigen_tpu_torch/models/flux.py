@@ -20,7 +20,7 @@ from unigen_tpu_torch.layers.core import init_linear, linear
 from unigen_tpu_torch.layers.embeddings import (combined_time_text,
                                                 init_combined_time_text)
 from unigen_tpu_torch.ops.rope import rope_multi_axis
-from unigen_tpu_torch.utils import index_params, init_stacked
+from unigen_tpu_torch.utils import index_params, init_stacked, remat_wrap
 
 
 def init_flux_params(cfg: FluxBackboneConfig, *, gen=None, device=None,
@@ -61,18 +61,30 @@ def flux_embed_inputs(params: dict, cfg: FluxBackboneConfig, hidden, encoder,
 
 def flux_forward(params: dict, cfg: FluxBackboneConfig, hidden, encoder,
                  pooled, timestep, img_ids, txt_ids,
-                 guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain (no control branch) forward: packed latent prediction [B, S, C]."""
+                 guidance: Optional[torch.Tensor] = None, *,
+                 remat=False) -> torch.Tensor:
+    """Plain (no control branch) forward: packed latent prediction [B, S, C];
+    ``remat`` is ``utils.remat_wrap``'s policy for each block."""
     h, enc, temb = flux_embed_inputs(params, cfg, hidden, encoder, pooled,
                                      timestep, guidance)
     rope = flux_rope(cfg, torch.cat([txt_ids, img_ids], dim=0))
     heads = cfg.num_attention_heads
-    for i in range(cfg.num_layers):
+
+    def double_body(h, enc, i):
         enc, h = flux_double_block(index_params(params["double_blocks"], i),
                                    h, enc, temb, rope, heads=heads)
+        return h, enc
+
+    def single_body(stream, i):
+        return flux_single_block(index_params(params["single_blocks"], i),
+                                 stream, temb, rope, heads=heads)
+
+    double_body = remat_wrap(double_body, remat)
+    single_body = remat_wrap(single_body, remat)
+    for i in range(cfg.num_layers):
+        h, enc = double_body(h, enc, i)
     stream = torch.cat([enc, h], dim=1)
     for i in range(cfg.num_single_layers):
-        stream = flux_single_block(index_params(params["single_blocks"], i),
-                                   stream, temb, rope, heads=heads)
+        stream = single_body(stream, i)
     h = adaln_continuous(params["norm_out"], stream[:, enc.shape[1]:], temb)
     return linear(params["proj_out"], h)

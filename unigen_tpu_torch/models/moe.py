@@ -1,11 +1,13 @@
 """Condition-expert MoE with modulated experts (port of
-``unigen_tpu/models/moe.py``, the serving path).
+``unigen_tpu/models/moe.py``, top-1 routing for serving and training).
 
 A GShard top-1 router on (hidden + condition) routes every stream with one
 set of slots; each expert is a pair of modulated linears computed as
 batched matmuls over the expert axis; the gather combine weights by the gate.
 ``batch_mode="per_sample"`` routes each sample with its own capacity (the
-JAX ``vmap`` over samples becomes a loop over the batch).
+JAX ``vmap`` over samples becomes a loop over the batch). ``training``
+routes with ``capacity_factor`` instead of ``eval_capacity_factor``; top-1
+without random token selection draws no random numbers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from unigen_tpu_torch.config import ControlConfig
 from unigen_tpu_torch.layers.core import init_linear
 from unigen_tpu_torch.ops import gating
 from unigen_tpu_torch.ops.modulation import batched_modulated_linear
-from unigen_tpu_torch.utils import init_stacked
+from unigen_tpu_torch.utils import init_stacked, promote
 
 
 class MoEOutput(NamedTuple):
@@ -51,12 +53,12 @@ def _expert_compute_modulated(experts: dict, routed: Dict[str, torch.Tensor]):
     """cond'   = W_c (.) Lc(cond_pooled) @ cond + b_c
        hidden' = W_h (.) Lh(pooled) @ (hidden + cond') + b_h
     on dispatched [E, C, *] inputs."""
-    s_c = (torch.bmm(routed["condition_pooled"], experts["cond_pool"]["w"])
+    s_c = (torch.bmm(*promote(routed["condition_pooled"], experts["cond_pool"]["w"]))
            + experts["cond_pool"]["b"][:, None, :])
     cond_out = batched_modulated_linear(routed["condition"],
                                         experts["cond_mod"]["w"], s_c,
                                         experts["cond_mod"]["b"])
-    s_h = (torch.bmm(routed["pooled"], experts["hid_pool"]["w"])
+    s_h = (torch.bmm(*promote(routed["pooled"], experts["hid_pool"]["w"]))
            + experts["hid_pool"]["b"][:, None, :])
     hid_out = batched_modulated_linear(routed["hidden"] + cond_out,
                                        experts["hid_mod"]["w"], s_h,
@@ -66,7 +68,8 @@ def _expert_compute_modulated(experts: dict, routed: Dict[str, torch.Tensor]):
 
 def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
               hidden: torch.Tensor, condition: torch.Tensor,
-              streams: Dict[str, torch.Tensor]) -> MoEOutput:
+              streams: Dict[str, torch.Tensor], *,
+              training: bool = False) -> MoEOutput:
     """Route on (hidden + condition), dispatch all streams, run the experts,
     combine. ``streams`` holds condition_pooled/pooled (and temb streams,
     which are routed alongside)."""
@@ -74,12 +77,17 @@ def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
         raise NotImplementedError("block experts (use_rope=False and "
                                   "use_modulate=False) wait for a later slice")
     if cfg.moe.top_k != 1 or not cfg.moe.fast_dispatch:
-        raise NotImplementedError("the port serves top-1 gather dispatch only")
+        raise NotImplementedError("the port routes top-1 with the gather "
+                                  "dispatch only; top-2 waits for a later slice")
+    if training and cfg.moe.use_rts:
+        raise NotImplementedError("random token selection in training waits "
+                                  "for a later slice of the port")
     b, s, d = hidden.shape
     if cfg.moe.batch_mode == "per_sample" and b > 1:
         outs = [moe_apply(params, cfg, num_experts, hidden[i:i + 1],
                           condition[i:i + 1],
-                          {k: v[i:i + 1] for k, v in streams.items()})
+                          {k: v[i:i + 1] for k, v in streams.items()},
+                          training=training)
                 for i in range(b)]
         return MoEOutput(torch.cat([o.expert_hidden for o in outs]),
                          torch.cat([o.expert_condition for o in outs]),
@@ -87,9 +95,10 @@ def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
                          torch.stack([o.expert_counts for o in outs]).sum(dim=0))
 
     choice = (hidden + condition).reshape(-1, d)
-    logits = choice.to(torch.float32) @ params["gate"]["w"]
+    logits = torch.matmul(*promote(choice.to(torch.float32), params["gate"]["w"]))
+    cap_factor = cfg.moe.capacity_factor if training else cfg.moe.eval_capacity_factor
     capacity = (b * s if not cfg.moe.drop_tokens else gating.compute_capacity(
-        b * s, num_experts, cfg.moe.eval_capacity_factor, cfg.moe.min_capacity))
+        b * s, num_experts, cap_factor, cfg.moe.min_capacity))
     gate_out = gating.top1_gate(logits, capacity)
 
     routed = {"hidden": hidden, "condition": condition, **streams}

@@ -15,7 +15,10 @@ plain serving forward), and ``UniGenFlux``, the module at the port's entry.
 Control blocks run sample-first with rope; every control block reads the
 fixed control context; multi-condition inputs carry a leading condition
 axis, and their expert outputs and condition tembs are summed.
-Control-residual capture and replay wait for the caching slice.
+``remat`` checkpoints each double and single body (base block + control
+block + gated add) as the JAX scan bodies are; ``training`` routes the MoE
+with its training capacity. Control-residual capture and replay wait for the
+caching slice.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ from unigen_tpu_torch.models.flux import (flux_embed_inputs, flux_rope,
                                           init_flux_params)
 from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
 from unigen_tpu_torch.pipelines import scheduling
-from unigen_tpu_torch.utils import (index_params, init_stacked, resolve_device,
-                                    tree_map)
+from unigen_tpu_torch.utils import (index_params, init_stacked, remat_wrap,
+                                    resolve_device, tree_map)
 
 
 def control_block_index_table(n_base: int, n_control: int) -> list:
@@ -125,14 +128,14 @@ class PreprocessOutput(NamedTuple):
 
 def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
                     control_temb, cond_temb, pooled, condition_pooled,
-                    img_ids, cond_ids, txt_ids) -> moe_lib.MoEOutput:
+                    img_ids, cond_ids, txt_ids, training=False) -> moe_lib.MoEOutput:
     """Route + experts, then the shared-expert weave."""
     bb, cc = cfg.flux, cfg.control
     heads = bb.num_attention_heads
     streams = {"temb": control_temb, "condition_temb": cond_temb,
                "pooled": pooled, "condition_pooled": condition_pooled}
     out = moe_lib.moe_apply(ctrl["moe"], cc, cc.moe.num_experts(cfg.condition_nums),
-                            h0, cond_h, streams)
+                            h0, cond_h, streams, training=training)
     exp_h, exp_c = out.expert_hidden, out.expert_condition
 
     if "shared_expert" in ctrl:
@@ -156,7 +159,8 @@ def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
 
 def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
                    pooled, condition_pooled, timestep, guidance,
-                   img_ids, txt_ids, condition_ids) -> PreprocessOutput:
+                   img_ids, txt_ids, condition_ids, *,
+                   training=False) -> PreprocessOutput:
     """Single ([B,Sc,C] condition) and multi ([K,B,Sc,C]) condition modes."""
     cc = cfg.control
     dtype = h0.dtype
@@ -181,7 +185,7 @@ def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
                                        cond_pooleds[k], g1000, dtype=dtype)
         out = _moe_with_weave(ctrl, cfg, h0, cond_h, control_enc, control_temb,
                               cond_temb, pooled, cond_pooleds[k], img_ids,
-                              cond_id_list[k], txt_ids)
+                              cond_id_list[k], txt_ids, training=training)
         moe_hidden = moe_hidden + out.expert_hidden + out.expert_condition
         block_temb = block_temb + cond_temb
     # aux loss and counts of the last condition (reference behavior)
@@ -192,12 +196,15 @@ def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
 def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                         encoder, pooled, condition_pooled, timestep, img_ids,
                         txt_ids, condition_ids, guidance=None, *,
-                        conditioning_scale: float = 1.0,
+                        conditioning_scale: float = 1.0, remat=False,
+                        training: bool = False,
                         control_residuals=None,
                         return_control_residuals: bool = False):
     """Full UniGenFlux forward -> (pred [B, S, C], add_losses, add_outputs).
     condition/condition_pooled/condition_ids may carry a leading condition
-    axis for multi-condition control."""
+    axis for multi-condition control. ``remat`` is ``utils.remat_wrap``'s
+    policy for the block bodies; ``training`` selects the MoE's training
+    capacity."""
     if control_residuals is not None or return_control_residuals:
         raise NotImplementedError(
             "control-residual capture and replay wait for the caching slice")
@@ -221,14 +228,15 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     enc, h = flux_double_block(index_params(base["double_blocks"], 0), h, enc,
                                temb, rope_base, heads=heads)
     pre = preprocess_moe(ctrl, cfg, h, enc, condition, pooled, condition_pooled,
-                         timestep, guidance, img_ids, txt_ids, condition_ids)
+                         timestep, guidance, img_ids, txt_ids, condition_ids,
+                         training=training)
     _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
                                   pre.moe_hidden, pre.control_enc,
                                   pre.block_temb, rope_cn_double, heads=heads,
                                   context_first=False)
     h = h + linear(index_params(ctrl["add_double"], 0), cn_out) * scale
 
-    for i in range(1, n_base):
+    def double_body(h, enc, i):
         enc, h = flux_double_block(index_params(base["double_blocks"], i), h,
                                    enc, temb, rope_base, heads=heads)
         j = cn_table[i]
@@ -236,14 +244,19 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                                       pre.control_enc, pre.block_temb,
                                       rope_cn_double, heads=heads,
                                       context_first=False)
-        h = h + linear(index_params(ctrl["add_double"], j), cn_out) * scale
+        return h + linear(index_params(ctrl["add_double"], j), cn_out) * scale, enc
+
+    double_body = remat_wrap(double_body, remat)
+    for i in range(1, n_base):
+        h, enc = double_body(h, enc, i)
 
     stream = torch.cat([enc, h], dim=1)
     enc_len = enc.shape[1]
     n_s = bb.num_single_layers
     if cc.use_single_trans_blocks and "single_blocks" in ctrl:
         cn_s_table = control_block_index_table(n_s, n_s // cc.single_control_dev)
-        for i in range(n_s):
+
+        def single_body(stream, i):
             stream = flux_single_block(index_params(base["single_blocks"], i),
                                        stream, temb, rope_base, heads=heads)
             j = cn_s_table[i]
@@ -252,14 +265,18 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                                        heads=heads)
             zc = linear(index_params(ctrl["add_single"], j), cn_out) * scale
             if cc.single_block_control_method == "overall_add":
-                stream = stream + zc
-            else:  # single_add: image section only
-                stream = torch.cat([stream[:, :enc_len],
-                                    stream[:, enc_len:] + zc[:, enc_len:]], dim=1)
+                return stream + zc
+            # single_add: image section only
+            return torch.cat([stream[:, :enc_len],
+                              stream[:, enc_len:] + zc[:, enc_len:]], dim=1)
     else:
-        for i in range(n_s):
-            stream = flux_single_block(index_params(base["single_blocks"], i),
-                                       stream, temb, rope_base, heads=heads)
+        def single_body(stream, i):
+            return flux_single_block(index_params(base["single_blocks"], i),
+                                     stream, temb, rope_base, heads=heads)
+
+    single_body = remat_wrap(single_body, remat)
+    for i in range(n_s):
+        stream = single_body(stream, i)
 
     h = adaln_continuous(base["norm_out"], stream[:, enc_len:], temb)
     pred = linear(base["proj_out"], h)

@@ -3,8 +3,8 @@
 Port of ``unigen_tpu/ops/attention.py``. ``sdpa_ref`` is the plain version
 of ``sdpa_xla`` (fp32 logits and softmax, probabilities cast to the value
 dtype for the second product). ``sdpa`` with rope tables runs the fused
-RoPE attention wrapper, which is the CUDA kernel on the card and the plain
-version on the CPU.
+RoPE attention, a ``torch.autograd.Function`` whose forward and backward are
+the CUDA kernels on the card and the plain versions on the CPU.
 """
 
 from __future__ import annotations

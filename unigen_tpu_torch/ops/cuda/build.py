@@ -2,8 +2,9 @@
 
 Each ``unigen_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the repository root,
-a shared library with a plain C interface. The hash covers the source and the
-flags, so an edited source rebuilds and an unchanged one loads from disk.
+a shared library with a plain C interface. The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads from disk.
 ``build_all`` starts one ``nvcc`` per source together and waits for all.
 Nothing here runs at import time.
 """
@@ -38,6 +39,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

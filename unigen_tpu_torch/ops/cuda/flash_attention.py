@@ -1,12 +1,26 @@
-"""Fused RoPE + attention: the CUDA kernel ``csrc/flash_attention_rope.cu``
-and its plain PyTorch version.
+"""Fused RoPE + attention, forward and backward: the CUDA kernels
+``csrc/flash_attention_rope.cu`` and ``csrc/flash_attention_rope_bwd.cu``
+and their plain PyTorch versions.
 
 Replaces ``unigen_tpu/ops/pallas/flash_attention.py``
-(``flash_attention_rope`` -> ``_attn_rope_kernel``): non-causal
-softmax(rot(q) rot(k)^T / sqrt(D)) v with interleaved-pair rotary taken in
-fp32 and rounded to the input dtype before the product. cos/sin [Sq, D] are
-the Q-side tables, kcos/ksin [Skv, D] the K-side ones (identity rows for
-KV-append keys). The kernel takes bf16 q, k, v [B, H, S, 128].
+(``flash_attention_rope`` -> ``_attn_rope_kernel``, and its VJP
+``_flash_rope_bwd`` -> ``_attn_bwd_rope_kernel`` or the kv-blocked
+``_lse_rope_kernel``/``_dq_blk_rope_kernel``/``_dkv_blk_rope_kernel``):
+non-causal softmax(rot(q) rot(k)^T / sqrt(D)) v with interleaved-pair rotary
+taken in fp32 and rounded to the input dtype before the product. cos/sin
+[Sq, D] are the Q-side tables, kcos/ksin [Skv, D] the K-side ones (identity
+rows for KV-append keys). The kernels take q, k, v [B, H, S, 128] in bf16,
+or all in fp32 (the ``Trainer``'s fp32 activations): fp32 operands are
+rounded to bf16 for the tensor cores where they are staged, as bf16 ones are
+after the rotation, and the results are written in fp32.
+
+``flash_attention_rope`` is a ``torch.autograd.Function``: its forward saves
+q, k, v, the tables, the output and the row log-sum-exp; its backward gives
+dq, dk, dv and no gradient for the tables (the JAX VJP returns zeros for
+them). On CUDA tensors both directions launch kernels; on CPU tensors both
+take the plain versions. The two directions go through the module-level
+``flash_attention_rope_fwd`` and ``flash_attention_rope_bwd``, so a caller
+can route both at once.
 """
 
 from __future__ import annotations
@@ -20,8 +34,12 @@ from unigen_tpu_torch.ops.cuda import build
 from unigen_tpu_torch.ops.rope import apply_rotary
 
 KERNEL = "flash_attention_rope"
+KERNEL_BWD = "flash_attention_rope_bwd"
 HEAD_DIM = 128
-launches = 0      # kernel launches, counted by the wrapper; reset by callers
+# kernel launches, counted by the wrappers; reset by callers
+launches = 0          # forward
+dq_launches = 0       # backward, dQ kernel
+dkv_launches = 0      # backward, dK/dV kernel
 
 
 def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
@@ -31,63 +49,204 @@ def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
     return sdpa_ref(apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin), v)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(KERNEL)
-    fn = lib.flash_attention_rope
+def _bwd_ref_parts(q, k, v, o, do, cos, sin, kcos, ksin):
+    """The shared fp32 part of the plain backward: the rotated operands, P
+    and dS of ``_bwd_block_math`` (flash_attention.py:621-643), with
+    D = rowsum(dO * O) from the saved output as ``_flash_bwd_blocked``
+    takes it (:1070-1076)."""
+    f32 = torch.float32
+    qr = apply_rotary(q.to(f32), cos, sin)            # fp32, not rounded
+    kr = apply_rotary(k.to(f32), kcos, ksin)
+    vf, dof = v.to(f32), do.to(f32)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(qr @ kr.transpose(-1, -2) * scale, dim=-1)
+    drow = (dof * o.to(f32)).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - drow) * scale
+    return qr, kr, p, ds, dof
+
+
+def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
+    """Plain backward in fp32 -> (dq, dk, dv) in the inputs' dtypes:
+    dq = rot^T(dS kr), dk = rot^T(dS^T qr), dv = P^T dO, where rot^T is
+    the counter-rotation rotate(., cos, -sin) (flash_attention.py:687-695)."""
+    qr, kr, p, ds, dof = _bwd_ref_parts(q, k, v, o, do, cos, sin, kcos, ksin)
+    dq = apply_rotary(ds @ kr, cos, -sin)
+    dk = apply_rotary(ds.transpose(-1, -2) @ qr, kcos, -ksin)
+    dv = p.transpose(-1, -2) @ dof
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# C entry points: (library, pointer arguments, float arguments); each also
+# takes BH, Sq, Skv ints before the floats, then an fp32 flag and the stream
+_ENTRIES = {"flash_attention_rope": (KERNEL, 9, 1),
+            "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 12, 2),
+            "flash_attention_rope_bwd_dq": (KERNEL_BWD, 11, 2)}
+
+
+def _entry(name: str):
+    kernel, n_ptr, n_float = _ENTRIES[name]
+    fn = getattr(build.load(kernel), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * n_float + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check(q, k, v, cos, sin, kcos, ksin):
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check(what, tensors, q, k, cos, sin, kcos, ksin):
+    """Raise unless every tensor is a contiguous CUDA tensor of the kernel's
+    dtype and shape: q-like and k-like all bf16 or all fp32, tables f32
+    [S, 128]."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention_rope: tensors on {dev} are neither "
-                         "CPU nor CUDA")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
-                           ("v", v, torch.bfloat16), ("cos", cos, torch.float32),
-                           ("sin", sin, torch.float32),
-                           ("kcos", kcos, torch.float32),
-                           ("ksin", ksin, torch.float32)):
+        raise ValueError(f"{what}: tensors on {dev} are neither CPU nor CUDA")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what}: q, k, v must be one of {_DTYPES}, got {q.dtype}")
+    for name, t, dtype in tensors:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"flash_attention_rope: {name} must be a contiguous "
-                             f"{dtype} tensor on {dev}, got {t.dtype} on {t.device}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("flash_attention_rope: q, k, v must be [B, H, S, D] "
-                         "with k and v of one shape")
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                             f"tensor on {dev}, got {t.dtype} on {t.device}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be [B, H, S, D]")
     b, h, sq, d = q.shape
     if k.shape[:2] != (b, h) or k.shape[3] != d or d != HEAD_DIM:
-        raise ValueError(f"flash_attention_rope: head dim must be {HEAD_DIM} and "
+        raise ValueError(f"{what}: head dim must be {HEAD_DIM} and "
                          f"q {tuple(q.shape)} must match k {tuple(k.shape)}")
     skv = k.shape[2]
     if cos.shape != (sq, d) or sin.shape != (sq, d) \
             or kcos.shape != (skv, d) or ksin.shape != (skv, d):
-        raise ValueError("flash_attention_rope: tables must be [Sq, D] and [Skv, D]")
-
-
-def flash_attention_rope(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
-    """q [B,H,Sq,D], k/v [B,H,Skv,D]; cos/sin [Sq,D], kcos/ksin [Skv,D] f32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel (and
-    count the launch) or raise."""
-    if q.device.type == "cpu":
-        return flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin)
-    _check(q, k, v, cos, sin, kcos, ksin)
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    out = torch.empty_like(q)
-    if b * h * sq == 0:
-        return out
+        raise ValueError(f"{what}: tables must be [Sq, D] and [Skv, D]")
     if skv == 0:
-        raise ValueError("flash_attention_rope: empty key sequence")
+        raise ValueError(f"{what}: empty key sequence")
+
+
+def _tables(cos, sin, kcos, ksin):
+    f32 = torch.float32
+    return [("cos", cos, f32), ("sin", sin, f32), ("kcos", kcos, f32),
+            ("ksin", ksin, f32)]
+
+
+def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
+    """Forward -> (out [B,H,Sq,D], lse [B,H,Sq] f32 or None). CPU tensors take
+    the plain version (no lse: the plain backward recomputes P); CUDA tensors
+    launch the kernel (and count the launch) or raise. ``with_lse`` makes the
+    kernel also write the row log-sum-exp for the backward."""
+    if q.device.type == "cpu":
+        return flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin), None
+    dt = q.dtype
+    _check("flash_attention_rope", [("q", q, dt), ("k", k, dt),
+                                    ("v", v, dt)] + _tables(cos, sin, kcos, ksin),
+           q, k, cos, sin, kcos, ksin)
+    if k.shape != v.shape:
+        raise ValueError("flash_attention_rope: k and v must have one shape")
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if b * h * sq == 0:
+        return out, lse
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
-    err = _lib().flash_attention_rope(
+    err = _entry("flash_attention_rope")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(), out.data_ptr(),
-        b * h, sq, skv, scale_log2,
+        None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
+        scale_log2, int(dt == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, KERNEL)
     global launches
     launches += 1
-    return out
+    return out, lse
+
+
+def _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), drow.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+             kcos.data_ptr(), ksin.data_ptr()),
+            (q.shape[0] * q.shape[1], q.shape[2], k.shape[2], scale,
+             scale * math.log2(math.e), int(q.dtype == torch.float32),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
+    """The dK/dV kernel alone on checked CUDA tensors -> (dk, dv); counted."""
+    ptrs, rest = _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    build.check(_entry("flash_attention_rope_bwd_dkv")(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest), KERNEL_BWD + "_dkv")
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
+    """The dQ kernel alone on checked CUDA tensors -> dq; counted."""
+    ptrs, rest = _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin)
+    dq = torch.empty_like(q)
+    build.check(_entry("flash_attention_rope_bwd_dq")(
+        *ptrs, dq.data_ptr(), *rest), KERNEL_BWD + "_dq")
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_rope_bwd(q, k, v, o, lse, do, cos, sin, kcos, ksin):
+    """Backward -> (dq, dk, dv). CPU tensors take the plain version (``lse``
+    unused); CUDA tensors run D = rowsum(dO * O) in fp32 (a torch elementwise
+    pass, as XLA computes it in JAX), then launch the dK/dV and the dQ
+    kernels (each counted) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin)
+    if lse is None:
+        raise ValueError("flash_attention_rope_bwd: the kernels need the "
+                         "forward's lse")
+    dt = q.dtype
+    _check("flash_attention_rope_bwd",
+           [("q", q, dt), ("k", k, dt), ("v", v, dt), ("o", o, dt),
+            ("do", do, dt), ("lse", lse, torch.float32)]
+           + _tables(cos, sin, kcos, ksin), q, k, cos, sin, kcos, ksin)
+    b, h, sq, d = q.shape
+    if lse.shape != (b, h, sq) or v.shape != k.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_rope_bwd: needs the forward's lse "
+                         "[B, H, Sq] and o, do of q's shape, v of k's shape")
+    if b * h * sq == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    drow = (do.float() * o.float()).sum(-1)
+    tables = (cos, sin, kcos, ksin)
+    dk, dv = flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, *tables)
+    dq = flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, *tables)
+    return dq, dk, dv
+
+
+class _FlashAttentionRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, kcos, ksin):
+        out, lse = flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin,
+                                            with_lse=True)
+        ctx.save_for_backward(q, k, v, cos, sin, kcos, ksin, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin, kcos, ksin, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_rope_bwd(q, k, v, out, lse,
+                                              do.contiguous(), cos, sin,
+                                              kcos, ksin)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_rope(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
+    """q [B,H,Sq,D], k/v [B,H,Skv,D]; cos/sin [Sq,D], kcos/ksin [Skv,D] f32.
+    Differentiable in q, k and v (a ``torch.autograd.Function``); the tables
+    get no gradient. CPU tensors take the plain versions; CUDA tensors launch
+    the kernels (and count the launches) or raise. Without a gradient to
+    record, it is the forward alone (no lse, nothing saved)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttentionRope.apply(q, k, v, cos, sin, kcos, ksin)
+    return flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin)[0]

@@ -8,11 +8,13 @@ from typing import Optional
 
 import torch
 
+from unigen_tpu_torch.utils import promote
+
 
 def batched_modulated_linear(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
                              b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Expert-batched form: x [E, C, I], w [E, I, O], s [E, C, I] -> [E, C, O]."""
-    y = torch.bmm(x * s, w)
+    y = torch.bmm(*promote(x * s, w))
     if b is not None:
         y = y + b[:, None, :]
     return y

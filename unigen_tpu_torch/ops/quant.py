@@ -1,4 +1,4 @@
-"""Quantized serving paths: W8A8 and W4A8, forward only.
+"""Quantized paths: W8A8 and W4A8, with a straight-through backward.
 
 Port of ``unigen_tpu/ops/quant.py``. Weights carry per-(block, out-channel)
 symmetric scales; activations are quantized per token at run time to int8;
@@ -11,11 +11,21 @@ j + in/2 in its high nibble).
 Every W4A8 linear runs the hand-written CUDA kernel on the card
 (``ops/cuda/quant_matmul.py``). The W8A8 product is a library int8 GEMM
 (``torch._int_mm``), as it is an XLA dot and not a Pallas kernel in JAX.
-The straight-through backward waits for the training slice.
+
+Both products are ``torch.autograd.Function``s with the JAX package's
+straight-through VJP (``unigen_tpu/ops/quant.py:197-280``): dx = g W_deq^T,
+the activation quantization is ignored, and the integer weight and its scale
+get no gradient. ``quant_bwd`` picks how dx is computed ("bf16", the
+default; "int8"; "f32"), the JAX package's ``UNIGEN_QUANT_BWD`` made an
+argument of ``quant_backward(policy)``, which scopes a forward and its
+backward. These backward products are plain matmuls (XLA
+dots in JAX, not Pallas kernels), so ``torch.matmul`` and ``torch._int_mm``
+compute them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Sequence
 
 import torch
@@ -84,29 +94,106 @@ def _int_mm(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, w_q)[:m]
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype=None) -> torch.Tensor:
-    """W8A8: x [..., N, in] fp; w_q [in, out] int8; w_scale [1, out]."""
-    _check_2d(w_q, "int8_matmul")
-    out_dtype = out_dtype or x.dtype
+QUANT_BWD_POLICIES = ("bf16", "int8", "f32")
+_policy = ["bf16"]      # the policy in scope; set only by quant_backward()
+
+
+@contextlib.contextmanager
+def quant_backward(policy: str):
+    """Scope the straight-through backward policy of every quantized matmul
+    recorded (or recomputed under remat) inside the block. A plain module
+    value, not a context variable: the recomputation of a checkpointed block
+    runs on autograd's device thread."""
+    if policy not in QUANT_BWD_POLICIES:
+        raise ValueError(f"quant_bwd={policy!r}: expected one of {QUANT_BWD_POLICIES}")
+    saved = _policy[0]
+    _policy[0] = policy
+    try:
+        yield
+    finally:
+        _policy[0] = saved
+
+
+def _int8_fwd(x, w_q, w_scale, out_dtype):
     xq, xs = _quantize_act(x)
     lead = x.shape[:-1]
     acc = _int_mm(xq.reshape(-1, x.shape[-1]), w_q).reshape(*lead, -1)
     return (acc.to(torch.float32) * xs * w_scale.reshape(-1)).to(out_dtype)
 
 
-def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype=None) -> torch.Tensor:
-    """W4A8: x [..., N, in] fp; w_q4 [in/2, out] packed; w_scale [1, out].
-    The product is the W4A8 kernel (its plain version on CPU tensors)."""
-    _check_2d(w_q4, "int4_matmul")
-    out_dtype = out_dtype or x.dtype
+def _int4_fwd(x, w_q4, w_scale, out_dtype):
     xq, xs = _quantize_act(x)
     lead = x.shape[:-1]
     out = quant_matmul.w4a8_matmul(
         xq.reshape(-1, x.shape[-1]), xs.reshape(-1, 1), w_q4,
         w_scale.reshape(1, -1), out_dtype)
     return out.reshape(*lead, -1)
+
+
+def bwd_dx(g: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+           x_dtype, policy: str) -> torch.Tensor:
+    """dx = g @ (w_q * w_scale)^T for int8 codes w_q [in, out], contracting
+    over the out axis (``_bwd_dx``, unigen_tpu/ops/quant.py:197-222):
+      "int8": quantize (g * w_scale) per token and run the int8 product with
+              the transposed codes (a per-call [out, in] int8 transient);
+      "bf16": bf16 g times the bf16-rounded dequantized weight, fp32 sums;
+      "f32":  fp32 g times the fp32 dequantized weight."""
+    if policy == "int8":
+        h = g.to(torch.float32) * w_scale.reshape(-1)
+        hq, hs = _quantize_act(h)
+        acc = _int_mm(hq.reshape(-1, h.shape[-1]), w_q.t().contiguous())
+        return (acc.reshape(*h.shape[:-1], -1).to(torch.float32) * hs).to(x_dtype)
+    w_deq = w_q.to(torch.float32) * w_scale.reshape(1, -1)       # [in, out]
+    if policy == "bf16":
+        gb, wb = g.to(torch.bfloat16), w_deq.to(torch.bfloat16)
+        if x_dtype == torch.bfloat16:       # fp32 sums, one rounding at the end
+            return gb @ wb.t()
+        return (gb.to(torch.float32) @ wb.to(torch.float32).t()).to(x_dtype)
+    if policy == "f32":
+        return (g.to(torch.float32) @ w_deq.t()).to(x_dtype)
+    raise ValueError(f"quant_bwd={policy!r}: expected one of {QUANT_BWD_POLICIES}")
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Quantized forward, straight-through backward; only x gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_scale, out_dtype, packed, policy):
+        ctx.save_for_backward(w, w_scale)
+        ctx.x_dtype, ctx.packed, ctx.policy = x.dtype, packed, policy
+        return (_int4_fwd if packed else _int8_fwd)(x, w, w_scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, w_scale = ctx.saved_tensors
+        w_q = unpack_int4(w) if ctx.packed else w
+        dx = bwd_dx(g, w_q, w_scale, ctx.x_dtype, ctx.policy)
+        return dx, None, None, None, None, None
+
+
+def _quantized(x, w, w_scale, out_dtype, packed):
+    out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _StraightThrough.apply(x, w, w_scale, out_dtype, packed, _policy[0])
+    return (_int4_fwd if packed else _int8_fwd)(x, w, w_scale, out_dtype)
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """W8A8: x [..., N, in] fp; w_q [in, out] int8; w_scale [1, out].
+    Differentiable in x (straight-through, the policy of ``quant_backward``
+    in scope, "bf16" by default)."""
+    _check_2d(w_q, "int8_matmul")
+    return _quantized(x, w_q, w_scale, out_dtype, False)
+
+
+def int4_matmul(x: torch.Tensor, w_q4: torch.Tensor, w_scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """W4A8: x [..., N, in] fp; w_q4 [in/2, out] packed; w_scale [1, out].
+    The product is the W4A8 kernel (its plain version on CPU tensors);
+    differentiable in x as ``int8_matmul``."""
+    _check_2d(w_q4, "int4_matmul")
+    return _quantized(x, w_q4, w_scale, out_dtype, True)
 
 
 def _eligible(path_names, node, *, min_dim: int, skip: Sequence[str]) -> bool:
@@ -158,3 +245,44 @@ def quantize_unigen_serving(params: dict, *, base_bits: int = 4,
                                   else 8))
         for k, v in params["control"].items()}
     return out
+
+
+_FROZEN_KEYS = ("w_q", "w_q4", "w_scale")
+
+
+def split_trainable(tree: Any):
+    """Split a (partially) quantized tree into (trainable, frozen) trees of
+    the same structure with complementary None leaves: frozen = the quantized
+    weight leaves (w_q/w_q4/w_scale), trainable = every float leaf (MoE
+    experts and gate, norms, linear biases). Port of
+    ``unigen_tpu/ops/quant.split_trainable``."""
+    def walk(node):
+        if isinstance(node, dict):
+            t, f = {}, {}
+            for k, v in node.items():
+                if k in _FROZEN_KEYS:
+                    t[k], f[k] = None, v
+                else:
+                    t[k], f[k] = walk(v)
+            return t, f
+        if isinstance(node, (list, tuple)):
+            pairs = [walk(v) for v in node]
+            return (type(node)(p[0] for p in pairs),
+                    type(node)(p[1] for p in pairs))
+        return node, None
+    return walk(tree)
+
+
+def merge_split(trainable: Any, frozen: Any):
+    """Inverse of ``split_trainable`` (complementary-None merge)."""
+    if trainable is None:
+        return frozen
+    if frozen is None:
+        return trainable
+    if isinstance(trainable, dict):
+        return {k: merge_split(trainable.get(k), frozen.get(k))
+                for k in {**trainable, **frozen}}
+    if isinstance(trainable, (list, tuple)):
+        return type(trainable)(merge_split(a, b)
+                               for a, b in zip(trainable, frozen))
+    return trainable

@@ -1,4 +1,4 @@
-"""Parameter-tree utilities and the device rule.
+"""Parameter-tree utilities, the device rule and the remat policy.
 
 A parameter tree is a nested dict of tensors in the JAX package's layout;
 stacked blocks carry a leading block axis and are indexed, not copied.
@@ -9,6 +9,43 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, Tuple
 
 import torch
+import torch.utils.checkpoint
+
+
+def remat_wrap(fn: Callable, remat) -> Callable:
+    """Rematerialisation of a block body (``unigen_tpu/utils.remat_wrap``).
+
+    False/None/"none" runs ``fn`` as it is. True/"full" checkpoints each call
+    (``torch.utils.checkpoint``, non-reentrant): only the body's inputs
+    survive the forward and the whole body runs again in the backward, the
+    memory floor. The body draws no random numbers, so the RNG state is not
+    saved. "dots" (save the weight products, recompute the rest) waits for a
+    later slice."""
+    if remat in (False, None, "none"):
+        return fn
+    if remat == "dots":
+        raise NotImplementedError('remat="dots" waits for a later slice of the '
+                                  'port; use "full" or "none"')
+    if remat not in (True, "full"):
+        raise ValueError(f"remat must be bool, 'none', 'full' or 'dots'; "
+                         f"got {remat!r}")
+
+    def checkpointed(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return checkpointed
+
+
+def promote(*tensors: torch.Tensor):
+    """The operands of a product cast to their common dtype: torch's products
+    refuse mixed dtypes where jnp's promote (bf16 x fp32 -> fp32), as when
+    fp32 trainable leaves meet bf16 activations."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in tensors)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,13 +59,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Map ``fn`` over the tensor leaves of nested dicts/lists/tuples."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Map ``fn`` over the tensor leaves of nested dicts/lists/tuples, with
+    the matching leaves of ``rest`` as further arguments. None leaves (the
+    frozen side of ``ops/quant.split_trainable``) stay None."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(tree, *rest)
 
 
 def tree_leaves_with_path(tree: Any, path: Tuple[str, ...] = ()
@@ -41,6 +81,11 @@ def tree_leaves_with_path(tree: Any, path: Tuple[str, ...] = ()
             yield from tree_leaves_with_path(v, path + (str(i),))
     else:
         yield path, tree
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensor leaves in the tree's order, None leaves left out."""
+    return [x for _, x in tree_leaves_with_path(tree) if x is not None]
 
 
 def index_params(tree: Any, i: int) -> Any:
@@ -61,5 +106,4 @@ def init_stacked(n: int, init_fn: Callable[[], Any]) -> Any:
 
 
 def param_bytes(tree: Any) -> int:
-    return sum(x.numel() * x.element_size()
-               for _, x in tree_leaves_with_path(tree))
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
