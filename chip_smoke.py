@@ -34,8 +34,26 @@ Phases, in order; any failure exits non-zero:
      the encoders give fp32 latents and embeddings (as the JAX Trainer
      runs), so every kernel runs on fp32 activations; finite losses and the
      config's launch counts.
-  7. one JSON line listing the kernels; the last line is the JSON result.
-It imports neither JAX nor the JAX package.
+  7. flux_1024: one b=1 request through the same W4A8 tree at 1024^2, 4
+     steps (attention over 4608, 8192 and 8704 keys, past the TPU's
+     2560-key streaming gate): launch counts and a per-call path check.
+  8. sd3: the full-width bf16 UniGen-SD3.5-medium (sd3_depth_28step: 24
+     joint blocks, dual attention on 0..12, width 1536 = 24 heads x 64, 24
+     control blocks, 6 block experts + the shared expert, global routing)
+     serves four b=1 requests through MicroBatchServer(batch_size=2): 28
+     Euler steps with classifier-free guidance 7.0 at 512^2, so each
+     forward runs batch 4; every attention call goes through the rope-free
+     kernel (launches equal expected_sd3_launches), the sd3_path_check
+     line holds each call of one more forward against its plain version and
+     that forward against one with the plain versions, and sd3_profile
+     gives the device time by kernel group.
+  9. sd3_1024: one b=1 request of the same model at 1024^2, 4 steps
+     (4429, 4096, 8192 and 8525 keys): launch counts and the path check.
+ 10. one JSON line listing the kernels; the last line is the JSON result.
+Phase 3 also holds the rope-free kernel against its plain version at every
+shape of the SD3 paths (D=64, ragged lengths) and both attention kernels at
+the 1024^2 lengths; plain versions past ~2 GB of fp32 logits run in head
+chunks. It imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +75,23 @@ ATTN_CASES = [            # (B*H split as B, H, Sq, Skv, identity K rows)
     (1, 24, 1536, 2048, 512)]
 W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
               (1536, 15360, 3072)]
+# the rope-free kernel at the SD3 paths' shapes (B, H, Sq, Skv, D): 512^2 at
+# serving batch 4 (2 requests x CFG), then the 1024^2 lengths at batch 2
+SD3_TXT = 77 + 256        # CLIP + T5 joint context
+NOROPE_CASES = [
+    (4, 24, 1357, 1357, 64),   # base and control joint blocks: 1024 img + 333 txt
+    (4, 24, 1024, 1024, 64),   # dual attn2 of base blocks 0..12
+    (4, 24, 2048, 2048, 64),   # weave_cond [img | cond], weave_text's attn2
+    (4, 24, 2381, 2381, 64),   # weave_text [img | cond | txt]
+    (1, 24, 683, 683, 64),     # one block expert at capacity ceil(4*1024/6)
+    (2, 24, 4429, 4429, 64),   # 1024^2: joint blocks, 4096 img + 333 txt
+    (2, 24, 4096, 4096, 64),   # 1024^2: dual attn2
+    (2, 24, 8192, 8192, 64),   # 1024^2: weave_cond
+    (2, 24, 8525, 8525, 64)]   # 1024^2: weave_text
+ROPE_LONG_CASES = [       # kernel 1 at FLUX's 1024^2 lengths (b=1)
+    (1, 24, 4608, 4608, 0), (1, 24, 8192, 8192, 0), (1, 24, 8704, 8704, 0)]
+HIRES, HIRES_STEPS = 1024, 4
+LOGITS_BUDGET = 2 ** 31   # bytes of fp32 logits a plain call may hold at once
 SEQ_TXT, HW = 512, 32     # 512^2 image -> 64^2 latents -> 32^2 = 1024 tokens
 STEPS, N_REQUESTS, BATCH = 4, 4, 2
 TRAIN_MICRO_STEPS, TRAIN_ACCUM, TRAINER_STEPS = 4, 2, 2
@@ -73,6 +108,19 @@ def emit(obj):
 def bound(ops: float, peak: float, nbytes: float):
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def chunked(fn, q, k, v, *tables):
+    """``fn`` over head chunks of q, k, v [B, H, S, D] whose fp32 logits stay
+    under LOGITS_BUDGET (a plain version at 8704 keys and 24 heads would
+    hold 7.3 GB of them), concatenated on the head axis."""
+    import torch
+    b, h, sq, _ = q.shape
+    step = max(1, LOGITS_BUDGET // (4 * b * sq * k.shape[2]))
+    if step >= h:
+        return fn(q, k, v, *tables)
+    return torch.cat([fn(q[:, i:i + step], k[:, i:i + step], v[:, i:i + step],
+                         *tables) for i in range(0, h, step)], dim=1)
 
 
 def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -92,18 +140,23 @@ def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def routed(attention_fwd, attention_bwd, w4a8):
-    """Route the port's kernel calls, both directions of the attention
-    autograd Function included, through the given functions."""
+def routed(**fns):
+    """Route the port's kernel entry points (``flash_attention_rope_fwd``,
+    ``flash_attention_rope_bwd``, ``flash_attention_fwd`` of the attention
+    module, ``w4a8_matmul`` of the quantized one) through the given
+    functions; both directions of the attention autograd Function and the
+    rope-free forward look them up at each call."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    saved = fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul
-    fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul = (
-        attention_fwd, attention_bwd, w4a8)
+    mods = {name: qm if name == "w4a8_matmul" else fa for name in fns}
+    saved = {name: getattr(mods[name], name) for name in fns}
+    for name, fn in fns.items():
+        setattr(mods[name], name, fn)
     try:
         yield
     finally:
-        fa.flash_attention_rope_fwd, fa.flash_attention_rope_bwd, qm.w4a8_matmul = saved
+        for name, fn in saved.items():
+            setattr(mods[name], name, fn)
 
 
 def plain_kernels():
@@ -112,21 +165,29 @@ def plain_kernels():
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
 
     def fwd(*args, with_lse=False):
-        return fa.flash_attention_rope_ref(*args), None
+        return chunked(fa.flash_attention_rope_ref, *args), None
 
     def bwd(q, k, v, o, lse, do, *tables):
         return fa.flash_attention_rope_bwd_ref(q, k, v, o, do, *tables)
-    return routed(fwd, bwd, qm.w4a8_matmul_ref)
+    return routed(flash_attention_rope_fwd=fwd, flash_attention_rope_bwd=bwd,
+                  flash_attention_fwd=lambda q, k, v: chunked(fa.flash_attention_ref, q, k, v),
+                  w4a8_matmul=qm.w4a8_matmul_ref)
 
 
-def attention_fp64(torch, q, k, v, cos, sin, kcos, ksin):
-    """Attention of the same bf16-rounded rotated operands in float64 with an
-    unrounded softmax: the value both bf16 versions approximate."""
+def attention_fp64(torch, q, k, v, *tables):
+    """Attention of the same bf16-rounded (rotated, where tables are given)
+    operands in float64 with an unrounded softmax: the value both bf16
+    versions approximate. Run in head chunks."""
     from unigen_tpu_torch.ops.rope import apply_rotary
-    qr, kr = (apply_rotary(x, c, s).double() for x, c, s in
-              ((q, cos, sin), (k, kcos, ksin)))
-    p = torch.softmax(qr @ kr.transpose(-1, -2) / q.shape[-1] ** 0.5, dim=-1)
-    return p @ v.double()
+
+    def one(q, k, v, *tables):
+        if tables:
+            cos, sin, kcos, ksin = tables
+            q, k = apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin)
+        p = torch.softmax(q.double() @ k.double().transpose(-1, -2)
+                          / q.shape[-1] ** 0.5, dim=-1)
+        return p @ v.double()
+    return chunked(one, q, k, v, *tables)
 
 
 def attention_bwd_fp64(torch, q, k, v, do, cos, sin, kcos, ksin):
@@ -143,6 +204,22 @@ def attention_bwd_fp64(torch, q, k, v, do, cos, sin, kcos, ksin):
             apply_rotary(dkr, kcos.double(), -ksin.double()), dv)
 
 
+def attention_record(torch, out, ref, args):
+    """One path-check record of an attention call: within 1e-2 of the
+    call's largest output; where the elementwise atol=rtol=1e-2 of phase 3
+    fails, which of the two is nearer the float64 value."""
+    o, r = out.float(), ref.float()
+    err, scale = (o - r).abs().max().item(), r.abs().max().item()
+    rec = dict(shape=list(args[0].shape) + [args[1].shape[2]], max_abs_err=err,
+               max_abs_out=scale, ok=err <= 1e-2 * scale)
+    if not torch.allclose(o, r, atol=1e-2, rtol=1e-2):
+        truth = attention_fp64(torch, *args)
+        rec.update(elementwise_fail=True,
+                   kernel_vs_fp64=(out.double() - truth).abs().max().item(),
+                   plain_vs_fp64=(ref.double() - truth).abs().max().item())
+    return rec
+
+
 def shadowed_kernels(torch, checks):
     """Run every kernel call of the path as it is and also through its plain
     version on the same inputs; append one record per call to
@@ -150,36 +227,49 @@ def shadowed_kernels(torch, checks):
     1e-2 of the call's largest output: the two bf16 versions round P at
     different points (the kernel before normalising, the plain version
     after), so their difference scales with the call's outputs, not with
-    each element. Where the elementwise atol=rtol=1e-2 of phase 3 fails,
-    the record says which of the two is nearer the float64 value."""
+    each element."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    kernel_fa, kernel_bwd, kernel_qm = (fa.flash_attention_rope_fwd,
-                                        fa.flash_attention_rope_bwd, qm.w4a8_matmul)
+    kernel_fa, kernel_norope, kernel_qm = (fa.flash_attention_rope_fwd,
+                                           fa.flash_attention_fwd, qm.w4a8_matmul)
 
     def attention(*args, with_lse=False):
-        (out, lse), ref = (kernel_fa(*args, with_lse=with_lse),
-                           fa.flash_attention_rope_ref(*args))
-        o, r = out.float(), ref.float()
-        err, scale = (o - r).abs().max().item(), r.abs().max().item()
-        rec = dict(shape=list(args[0].shape) + [args[1].shape[2]], max_abs_err=err,
-                   max_abs_out=scale, ok=err <= 1e-2 * scale)
-        if not torch.allclose(o, r, atol=1e-2, rtol=1e-2):
-            truth = attention_fp64(torch, *args)
-            rec.update(elementwise_fail=True,
-                       kernel_vs_fp64=(out.double() - truth).abs().max().item(),
-                       plain_vs_fp64=(ref.double() - truth).abs().max().item())
-        checks["flash_attention_rope"].append(rec)
+        out, lse = kernel_fa(*args, with_lse=with_lse)
+        ref = chunked(fa.flash_attention_rope_ref, *args)
+        checks.setdefault("flash_attention_rope", []).append(
+            attention_record(torch, out, ref, args))
         return out, lse
+
+    def norope(*args):
+        out, ref = kernel_norope(*args), chunked(fa.flash_attention_ref, *args)
+        checks.setdefault("flash_attention", []).append(
+            attention_record(torch, out, ref, args))
+        return out
 
     def w4a8(*args):
         out, ref = kernel_qm(*args), qm.w4a8_matmul_ref(*args)
-        checks["w4a8_matmul"].append(dict(
+        checks.setdefault("w4a8_matmul", []).append(dict(
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             ok=torch.equal(out, ref)))
         return out
 
-    return routed(attention, kernel_bwd, w4a8)
+    return routed(flash_attention_rope_fwd=attention, flash_attention_fwd=norope,
+                  w4a8_matmul=w4a8)
+
+
+def path_check_summary(checks):
+    """Per kernel: calls, the largest error, the calls that disagree, and
+    for attention the largest error over the call's largest output."""
+    out = {name: dict(calls=len(c), max_abs_err=max(r["max_abs_err"] for r in c),
+                      disagree=sum(not r["ok"] for r in c))
+           for name, c in checks.items()}
+    for name in ("flash_attention_rope", "flash_attention"):
+        if name in checks:
+            out[name].update(
+                max_err_over_max_out=max(r["max_abs_err"] / max(r["max_abs_out"], 1e-30)
+                                         for r in checks[name]),
+                elementwise_fails=[r for r in checks[name] if r.get("elementwise_fail")])
+    return out
 
 
 def phase_kernels(torch, dev, seed):
@@ -196,7 +286,7 @@ def phase_kernels(torch, dev, seed):
         r = torch.arange(n, device=dev)
         return torch.stack([torch.zeros_like(r), r // HW, r % HW], -1).float()
 
-    for b, h, sq, skv, ident in ATTN_CASES:
+    for b, h, sq, skv, ident in ATTN_CASES + ROPE_LONG_CASES:
         d = fa.HEAD_DIM
         cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
         kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
@@ -207,22 +297,51 @@ def phase_kernels(torch, dev, seed):
         args = (q, k, v, cos, sin, kcos, ksin)
         out = fa.flash_attention_rope(*args)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_rope_ref(*args)
+        ref = chunked(fa.flash_attention_rope_ref, *args)
         err = (out.float() - ref.float()).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        del out, ref
         qr, kr = apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin)
         flops = 4.0 * b * h * sq * skv * d
         nbytes = 2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d) + 4.0 * 2 * (sq + skv) * d
         bms, by = bound(flops, BF16_FLOPS, nbytes)
+        long = skv > 2560                     # the TPU's streaming kernel
         row = dict(kernel="flash_attention_rope", b=b, h=h, sq=sq, skv=skv,
-                   identity_rows=ident, max_abs_err=err, ok=ok,
+                   identity_rows=ident,
+                   tpu_schedule="streaming" if long else "full_kv",
+                   max_abs_err=err, ok=ok,
                    ms=median_ms(lambda: fa.flash_attention_rope(*args)),
-                   plain_ms=median_ms(lambda: fa.flash_attention_rope_ref(*args)),
+                   plain_ms=median_ms(lambda: chunked(fa.flash_attention_rope_ref, *args),
+                                      *((5, 1) if long else ())),
                    library_ms=median_ms(
                        lambda: F.scaled_dot_product_attention(qr, kr, v)),
                    bound_ms=bms, bound_by=by)
         emit(row)
         rows["flash_attention_rope"].append(row)
+
+    rows["flash_attention"] = []
+    for b, h, sq, skv, d in NOROPE_CASES:
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
+                   for s in (sq, skv, skv))
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = chunked(fa.flash_attention_ref, q, k, v)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = torch.allclose(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+        del out, ref
+        bms, by = bound(4.0 * b * h * sq * skv * d, BF16_FLOPS,
+                        2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d))
+        long = skv > 2560
+        row = dict(kernel="flash_attention", b=b, h=h, sq=sq, skv=skv, d=d,
+                   tpu_schedule="streaming" if long else "full_kv",
+                   max_abs_err=err, ok=ok,
+                   ms=median_ms(lambda: fa.flash_attention(q, k, v)),
+                   plain_ms=median_ms(lambda: chunked(fa.flash_attention_ref, q, k, v),
+                                      *((5, 1) if long else ())),
+                   library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   bound_ms=bms, bound_by=by)
+        emit(row)
+        rows["flash_attention"].append(row)
 
     for m, kdim, n in W4A8_CASES:
         xq = torch.randint(-127, 128, (m, kdim), dtype=torch.int8, device=dev,
@@ -376,11 +495,13 @@ def device_breakdown(torch, fn, phase="profile", **extra):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0,
-              "flash_attention_rope_bwd": 0.0, "library gemm": 0.0, "other": 0.0}
+              "flash_attention_rope_bwd": 0.0, "flash_attention": 0.0,
+              "library gemm": 0.0, "other": 0.0}
     for name, us in by_name.items():
         key = ("w4a8_matmul" if "w4a8" in name else
                "flash_attention_rope_bwd" if "flash_rope_bwd" in name else
                "flash_attention_rope" if "flash_rope" in name else
+               "flash_attention" if "flash_kernel" in name else
                "library gemm" if any(t in name.lower() for t in
                                      ("gemm", "cutlass", "xmma", "nvjet"))
                else "other")
@@ -391,6 +512,37 @@ def device_breakdown(torch, fn, phase="profile", **extra):
               device_idle_share=(1 - busy / wall_us) if busy else None,
               groups_ms={k: v / 1e3 for k, v in groups.items()},
               top_kernels_ms=[[n[:80], us / 1e3] for n, us in top]))
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
+            BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches,
+            "flash_attention": fa.norope_launches}
+
+
+def reset_launch_counts():
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.norope_launches = 0
+    qm.launches = 0
+
+
+def expected_sd3_launches(cfg, batch: int = 1) -> int:
+    """Rope-free attention calls of one UniGen-SD3 forward at ``batch``:
+    every base joint block (and attn2 of the dual ones), the control joint
+    block run after each base block, two block-expert calls per expert (the
+    hidden and the condition stream; per sample under per-sample routing),
+    and the shared expert's weave_cond, weave_text and weave_text's attn2."""
+    bb, cc = cfg.sd3, cfg.control
+    dual = sum(i in set(bb.dual_attention_layers) for i in range(bb.num_layers))
+    experts = (0 if cc.use_modulate or cc.use_rope
+               else 2 * cc.moe.num_experts(cfg.condition_nums))
+    if cc.moe.batch_mode == "per_sample" and batch > 1:
+        experts *= batch
+    return 2 * bb.num_layers + dual + experts + (3 if cc.use_shared_expert else 0)
 
 
 def expected_launches(params, cfg):
@@ -473,8 +625,7 @@ def phase_slice(torch, dev):
     srv = MicroBatchServer(lambda x: model.denoise(**x, num_steps=STEPS),
                            batch_size=BATCH, max_wait_ms=50)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    qm.launches = 0
+    reset_launch_counts()
     try:
         t0 = time.time()
         futs = [srv.submit(**r) for r in reqs]
@@ -512,7 +663,7 @@ def phase_slice(torch, dev):
     # alone may not see a kernel fault); then one forward with the plain
     # versions on the same inputs.
     fwd1 = forward_fn({k: torch.as_tensor(v) for k, v in reqs[0].items()})
-    checks = {"flash_attention_rope": [], "w4a8_matmul": []}
+    checks = {}
     with torch.no_grad():
         before = dict(launches_now())
         with shadowed_kernels(torch, checks):
@@ -524,16 +675,10 @@ def phase_slice(torch, dev):
     if mid != {k: before[k] + n for k, n in (("flash_attention_rope", attn_pf),
                                              ("w4a8_matmul", w4_pf))} or after != mid:
         raise SystemExit(f"kernel/plain forwards launched {before} -> {mid} -> {after}")
-    path_check = {name: dict(calls=len(c), max_abs_err=max(r["max_abs_err"] for r in c),
-                             disagree=sum(not r["ok"] for r in c))
-                  for name, c in checks.items()}
-    attn = checks["flash_attention_rope"]
-    path_check["flash_attention_rope"].update(
-        max_err_over_max_out=max(r["max_abs_err"] / max(r["max_abs_out"], 1e-30)
-                                 for r in attn),
-        elementwise_fails=[r for r in attn if r.get("elementwise_fail")])
+    path_check = path_check_summary(checks)
     emit(dict(phase="path_check", **path_check))
-    if any(c["disagree"] or not c["calls"] for c in path_check.values()):
+    if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
+            or set(path_check) != {"flash_attention_rope", "w4a8_matmul"}:
         raise SystemExit(f"a kernel disagrees with its plain version on the path: "
                          f"{path_check}")
     rel = ((pred_k - pred_p).norm() / pred_p.norm()).item()
@@ -599,7 +744,7 @@ def phase_train(torch, dev, params, seed):
         return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
                 BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches}
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.dq_launches = fa.dkv_launches = qm.launches = 0
+    reset_launch_counts()
     losses, step_ms = [], []
     for _ in range(TRAIN_MICRO_STEPS):
         t0 = time.perf_counter()
@@ -709,7 +854,7 @@ def phase_trainer(torch, dev, params, seed):
     print(f"# trainer: warm-up step {time.time() - t0:.2f}s, "
           f"loss {float(m['step_loss']):.5g}", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.dq_launches = fa.dkv_launches = qm.launches = 0
+    reset_launch_counts()
     losses, step_ms = [], []
     for _ in range(TRAINER_STEPS):
         t0 = time.perf_counter()
@@ -733,6 +878,209 @@ def phase_trainer(torch, dev, params, seed):
     if launches != want or dtypes != ["torch.float32"]:
         raise SystemExit(f"Trainer launches {launches} != expected {want}, "
                          f"trainable dtypes {dtypes}")
+
+
+def hires_phase(torch, phase, run, forward, per_forward, steps, **extra):
+    """One request at 1024^2: ``run()`` denoises it (timed, launch counts
+    from 0), which must launch ``per_forward`` kernels of each name per
+    step; then one ``forward()`` with every kernel call also held against
+    its plain version (head-chunked), which must agree."""
+    reset_launch_counts()
+    t0 = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    want = {k: n * steps for k, n in per_forward.items() if n}
+    if not torch.isfinite(out.float()).all() or launches != want:
+        raise SystemExit(f"{phase}: launches {launches} != expected {want} "
+                         f"or non-finite output")
+    checks = {}
+    with torch.no_grad(), shadowed_kernels(torch, checks):
+        forward()
+    path_check = path_check_summary(checks)
+    emit(dict(phase=phase, steps=steps, seconds=dt, ms_per_denoise_step=dt / steps * 1e3,
+              launches=launches, expected_launches=want, out_shape=list(out.shape),
+              path_check=path_check, **extra))
+    if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
+            or set(path_check) != set(want):
+        raise SystemExit(f"{phase}: a kernel disagrees with its plain version on "
+                         f"the path: {path_check}")
+    return launches
+
+
+def phase_flux_1024(torch, dev, params):
+    """One b=1 request through the phase-4 W4A8 FLUX tree at 1024^2: 4096
+    image + 512 text tokens (4608), the weave over 8192 and 8704."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.models.unigen_flux import UniGenFlux
+    from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    model = UniGenFlux(cfg, params, device=dev)
+    hw = HIRES // 16                             # 64^2 packed tokens
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+    x = dict(latents=mk(1, hw * hw, bb.in_channels), condition=mk(1, hw * hw, bb.in_channels),
+             encoder=mk(1, SEQ_TXT, bb.joint_attention_dim),
+             pooled=mk(1, bb.pooled_projection_dim),
+             cond_pooled=mk(1, bb.pooled_projection_dim))
+    img_ids = prepare_latent_image_ids(hw, hw, device=dev)
+    attn_pf, w4_pf = expected_launches(params, cfg)
+    return hires_phase(
+        torch, "flux_1024", lambda: model.denoise(**x, num_steps=HIRES_STEPS),
+        lambda: model(x["latents"], x["condition"], x["encoder"], x["pooled"],
+                      x["cond_pooled"], torch.ones(1, dtype=model.dtype, device=dev),
+                      img_ids, torch.zeros(SEQ_TXT, 3, device=dev), img_ids),
+        {"flash_attention_rope": attn_pf, "w4a8_matmul": w4_pf}, HIRES_STEPS,
+        resolution=HIRES, attention_lengths=[hw * hw + SEQ_TXT, 2 * hw * hw,
+                                            2 * hw * hw + SEQ_TXT])
+
+
+def sd3_requests(bb, n, res, seed):
+    """``n`` b=1 requests (latents, condition latents, text embeddings)
+    drawn on the host from ``seed``; the negative prompt is the pipeline's
+    default, zeros."""
+    import torch
+    host = torch.Generator().manual_seed(seed)
+    lat = res // 8
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=host).numpy()
+    return [dict(latents=mk(1, bb.in_channels, lat, lat),
+                 condition=mk(1, bb.in_channels, lat, lat),
+                 encoder=mk(1, SD3_TXT, bb.joint_attention_dim),
+                 pooled=mk(1, bb.pooled_projection_dim),
+                 cond_pooled=mk(1, bb.pooled_projection_dim)) for _ in range(n)]
+
+
+def sd3_cfg_forward(torch, model, batch, steps):
+    """One UniGen-SD3 forward of the denoise's first step on the
+    CFG-doubled batch ([neg; pos] on the batch axis, zero negatives)."""
+    from unigen_tpu_torch.models.unigen_sd3 import SD3_SCHEDULER
+    from unigen_tpu_torch.pipelines import scheduling
+    dev, dt = model.device, model.dtype
+    x = {k: torch.as_tensor(v).to(dev, dt) for k, v in batch.items()}
+
+    def two(t):
+        return torch.cat([t, t])
+    _, ts = scheduling.inference_sigmas(SD3_SCHEDULER, steps)
+    args = (two(x["latents"]), two(x["condition"]),
+            torch.cat([torch.zeros_like(x["encoder"]), x["encoder"]]),
+            torch.cat([torch.zeros_like(x["pooled"]), x["pooled"]]),
+            two(x["cond_pooled"]),
+            torch.full((2 * x["latents"].shape[0],), float(ts[0]), dtype=dt, device=dev))
+    return lambda: model(*args)[0]
+
+
+def phase_sd3(torch, dev, seed):
+    """BASELINE config #2 (presets.baseline_configs()["sd3_depth_28step"]):
+    the full-width bf16 UniGen-SD3.5-medium tree from ``seed``, four b=1
+    requests through MicroBatchServer(batch_size=2), 28 Euler steps with
+    guidance 7.0 at 512^2."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.io.from_jax import init_sd3_serving_params
+    from unigen_tpu_torch.models.unigen_sd3 import UniGenSD3
+    from unigen_tpu_torch.serving import MicroBatchServer
+    from unigen_tpu_torch.utils import param_bytes
+    run = presets.baseline_configs()["sd3_depth_28step"]
+    cfg, steps, guidance, res = run["cfg"], run["steps"], run["guidance"], run["resolution"]
+    bb = cfg.sd3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = init_sd3_serving_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    resident, init_peak = param_bytes(params), torch.cuda.max_memory_allocated()
+    model = UniGenSD3(cfg, params, device=dev)
+    print(f"# sd3: sd35_medium bf16 tree built in {time.time() - t0:.1f}s, "
+          f"resident {resident / 2**30:.3f} GiB", flush=True)
+
+    reqs = sd3_requests(bb, N_REQUESTS, res, seed + 2)
+    warm = {k: torch.cat([torch.as_tensor(r[k]) for r in reqs[:BATCH]]) for k in reqs[0]}
+    t0 = time.time()
+    model.denoise(**warm, num_steps=1, guidance_scale=guidance)
+    torch.cuda.synchronize()
+    print(f"# sd3: warm-up step {time.time() - t0:.2f}s", flush=True)
+
+    srv = MicroBatchServer(lambda x: model.denoise(**x, num_steps=steps,
+                                                   guidance_scale=guidance),
+                           batch_size=BATCH, max_wait_ms=50)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        t0 = time.time()
+        futs = [srv.submit(**r) for r in reqs]
+        outs = [f.result(timeout=900) for f in futs]
+        dt = time.time() - t0
+    finally:
+        srv.close()
+    launches = {k: n for k, n in launch_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    per_fwd = expected_sd3_launches(cfg, 2 * BATCH)
+    forwards = srv.stats.batches * steps
+    want = {"flash_attention": per_fwd * forwards}
+    lat = res // 8
+    for o in outs:
+        if tuple(o.shape) != (1, bb.out_channels, lat, lat) or not torch.isfinite(o).all():
+            raise SystemExit(f"bad sd3 denoise output: {tuple(o.shape)}")
+    if srv.stats.batches != N_REQUESTS // BATCH or launches != want:
+        raise SystemExit(f"sd3 launches {launches} != expected {want} "
+                         f"({srv.stats.batches} batches)")
+
+    # one forward with each kernel call held against its plain version,
+    # then one with the plain versions, on the same CFG-doubled inputs
+    fwd = sd3_cfg_forward(torch, model, warm, steps)
+    checks = {}
+    with torch.no_grad():
+        before = launch_counts()
+        with shadowed_kernels(torch, checks):
+            pred_k = fwd().float()
+        mid = launch_counts()
+        with plain_kernels():
+            pred_p = fwd().float()
+        after = launch_counts()
+    if mid != dict(before, flash_attention=before["flash_attention"] + per_fwd) \
+            or after != mid:
+        raise SystemExit(f"sd3 kernel/plain forwards launched {before} -> {mid} -> {after}")
+    rel = ((pred_k - pred_p).norm() / pred_p.norm()).item()
+    path_check = path_check_summary(checks)
+    emit(dict(phase="sd3_path_check", **path_check, kernel_vs_plain_rel_l2=rel,
+              values_differ=int((pred_k != pred_p).sum()), values=pred_p.numel()))
+    if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
+            or set(path_check) != {"flash_attention"} or not rel <= 3e-2:
+        raise SystemExit(f"sd3: a kernel disagrees with its plain version: "
+                         f"{path_check}, forward rel L2 {rel}")
+
+    with torch.no_grad():
+        device_breakdown(torch, fwd, phase="sd3_profile", forward_batch=2 * BATCH)
+    st = srv.stats
+    emit(dict(phase="sd3", config="sd3_depth_28step", requests=N_REQUESTS,
+              steps=steps, guidance=guidance, resolution=res, seconds=dt,
+              images_per_s=N_REQUESTS / dt, ms_per_denoise_step=dt / forwards * 1e3,
+              server=dict(batches=st.batches, requests=st.requests, samples=st.samples,
+                          padded_samples=st.padded_samples,
+                          wasted_pad_fraction=st.wasted_pad_fraction),
+              attention_launches_per_forward=per_fwd, launches=launches,
+              expected_launches=want, peak_bytes=peak, init_peak_bytes=init_peak,
+              resident_bytes=resident, out_shape=list(outs[0].shape)))
+    return model, launches
+
+
+def phase_sd3_1024(torch, model, seed):
+    """One b=1 request of the same SD3 model at 1024^2 (4096 image tokens:
+    attention over 4429, 4096, 8192 and 8525 keys), 4 steps."""
+    from unigen_tpu_torch import presets
+    cfg = model.cfg
+    guidance = presets.baseline_configs()["sd3_depth_28step"]["guidance"]
+    req = sd3_requests(cfg.sd3, 1, HIRES, seed + 3)[0]
+    return hires_phase(
+        torch, "sd3_1024", lambda: model.denoise(**req, num_steps=HIRES_STEPS,
+                                                 guidance_scale=guidance),
+        sd3_cfg_forward(torch, model, req, HIRES_STEPS),
+        {"flash_attention": expected_sd3_launches(cfg, 2)}, HIRES_STEPS,
+        resolution=HIRES, guidance=guidance)
 
 
 def main() -> int:
@@ -782,22 +1130,37 @@ def main() -> int:
     # 6. the Trainer on the same tree, fp32 activations
     phase_trainer(torch, dev, params, args.seed)
 
-    # 7. kernels line: the dominant main-path shape of each kernel; launches
-    # from the training run (the serving run's beside the forward kernels)
+    # 7. the W4A8 FLUX tree at 1024^2
+    phase_flux_1024(torch, dev, params)
+    del params
+    torch.cuda.empty_cache()
+
+    # 8. the SD3 serving path, 9. the same at 1024^2
+    model, sd3_launches = phase_sd3(torch, dev, args.seed)
+    phase_sd3_1024(torch, model, args.seed)
+
+    # 10. kernels line: the dominant main-path shape of each kernel; launches
+    # from the main path that runs it (training for the FLUX kernels, with
+    # the serving run's beside the forward kernels; SD3 serving for the
+    # rope-free one)
     pallas = "unigen_tpu/ops/pallas/"
     sources = {
-        "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128", None),
+        "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128",
+                                 pallas + "flash_attention.py:416"),
         "w4a8_matmul": ("w4a8_matmul.cu", "quant_matmul.py:57", None),
         BWD_NAMES[0]: ("flash_attention_rope_bwd.cu", "flash_attention.py:904",
                        pallas + "flash_attention.py:670"),
         BWD_NAMES[1]: ("flash_attention_rope_bwd.cu", "flash_attention.py:958",
-                       pallas + "flash_attention.py:670")}
+                       pallas + "flash_attention.py:670"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:109",
+                            pallas + "flash_attention.py:399")}
+    main_path = dict(launches, flash_attention=sd3_launches["flash_attention"])
     kernels = []
     for name, (src, replaces, also) in sources.items():
         rep = rows[name][1] if name == "w4a8_matmul" else rows[name][0]
         entry = dict(
             name=name, route="cuda", source="unigen_tpu_torch/csrc/" + src,
-            replaces=pallas + replaces, launches=launches[name],
+            replaces=pallas + replaces, launches=main_path[name],
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"])

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
-NVIDIA card (the attention forward, its backward and the W4A8 matmul). Marked ``cuda``; without a card they skip. This file imports
-no JAX, so it also runs where JAX is absent:
+NVIDIA card (the RoPE attention forward and its backward, the rope-free
+attention forward at head dim 64 and 128, and the W4A8 matmul). Marked
+``cuda``; without a card they skip. This file imports no JAX, so it also
+runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 """
@@ -119,3 +121,61 @@ def test_attention_autograd_runs_kernels_on_card(card):
     want = torch.autograd.grad(ref.float().square().sum(), leaves)
     for x, y in zip(grads, want):
         assert _rel_l2(x, y) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,sq,skv,d", [
+    (1, 3, 200, 333, 64), (2, 2, 1357, 1357, 64), (1, 4, 683, 683, 64),
+    (1, 3, 200, 333, 128), (1, 2, 130, 257, 128), (1, 1, 1, 1, 64)])
+def test_rope_free_kernel_matches_plain_on_card(card, b, h, sq, skv, d, dtype):
+    """Ragged lengths (the KV tail masked, Q rows past Sq never stored) at
+    both head dims, within atol=rtol=1e-2 of the plain version in the same
+    dtype: the kernel rounds P to bf16 before normalising, the plain
+    version after."""
+    from unigen_tpu_torch.ops.attention import sdpa
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn(b, h, s, d, device=card, generator=g).to(dtype)
+               for s in (sq, skv, skv))
+    before = t_fa.norope_launches
+    out = sdpa(q, k, v)
+    torch.cuda.synchronize()
+    assert t_fa.norope_launches == before + 1
+    ref = t_fa.flash_attention_ref(q, k, v)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_long_kv_kernels_match_plain_on_card(card):
+    """Both attention kernels past the TPU's 2560-key streaming gate: the
+    rope-free one at SD3's ragged 1024^2 length, the RoPE one at FLUX's
+    weave_text length with 512 identity K rows."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(1, 2, s, 64, device=card, generator=g).bfloat16()
+               for s in (4429, 8525, 8525))
+    out = t_fa.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(), t_fa.flash_attention_ref(q, k, v).float(),
+                               atol=1e-2, rtol=1e-2)
+    tabs = _tables(4608, 8704, 512, card)
+    q, k, v = (torch.randn(1, 2, s, 128, device=card, generator=g).bfloat16()
+               for s in (4608, 8704, 8704))
+    out = t_fa.flash_attention_rope(q, k, v, *tabs)
+    torch.testing.assert_close(out.float(),
+                               t_fa.flash_attention_rope_ref(q, k, v, *tabs).float(),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_rope_free_sdpa_raises_under_autograd_on_card(card):
+    """The rope-free backward is not ported: recording a gradient on the
+    card raises (and launches nothing) instead of running the plain math."""
+    from unigen_tpu_torch.ops.attention import sdpa
+    q = torch.randn(1, 2, 64, 64, device=card, requires_grad=True)
+    before = t_fa.norope_launches
+    with pytest.raises(NotImplementedError, match="5p and 6p"):
+        sdpa(q, q, q)
+    assert t_fa.norope_launches == before
+    with torch.no_grad():
+        assert sdpa(q, q, q).shape == q.shape
+    assert t_fa.norope_launches == before + 1

@@ -1,5 +1,6 @@
-"""The port's two kernels on the CPU: their plain PyTorch versions against
-the Pallas kernels they replace (interpret mode), and the wrappers' device
+"""The port's kernels on the CPU: their plain PyTorch versions against the
+Pallas kernels they replace (interpret mode), the full-KV and the streaming
+schedules of both attention forwards included, and the wrappers' device
 rule. The CUDA kernels themselves are tested on the card by
 tests/test_torch_port_cuda.py."""
 
@@ -56,6 +57,43 @@ def test_attention_plain_version_matches_pallas(pallas, sq, skv):
     assert_close(got, want, 3e-5)     # the JAX kernel test's own tolerance
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_free_plain_version_matches_pallas(pallas, d):
+    """Ragged lengths (Sq=200, Skv=333: the Pallas kernel pads and masks
+    the KV tail to -1e30) at SD3's head dim and at 128."""
+    fa, _ = pallas
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (pair(normal(rng, 1, 2, s, d))
+                                    for s in (200, 333, 333))
+    assert_close(t_fa.flash_attention(tq, tk, tv), fa.flash_attention(jq, jk, jv), 3e-5)
+
+
+def test_rope_free_plain_version_matches_pallas_streaming(pallas):
+    """Past the 2560-key gate the TPU takes the online-softmax streaming
+    kernel (flash_attention_streaming); the port's one kernel (and so its
+    one plain version) serves both."""
+    fa, _ = pallas
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = (pair(normal(rng, 1, 2, s, 64))
+                                    for s in (130, 2700, 2700))
+    assert not fa.supported(jq, jk, jv)
+    assert_close(t_fa.flash_attention(tq, tk, tv),
+                 fa.flash_attention_streaming(jq, jk, jv), 3e-5)
+
+
+def test_rope_plain_version_matches_pallas_streaming(pallas):
+    """Kernel 1's plain version against flash_attention_streaming_rope at
+    2700 keys, the last 300 of them KV-append rows with identity tables."""
+    fa, _ = pallas
+    rng = np.random.default_rng(5)
+    tabs = [pair(t) for t in _tables(130, 2700, n_identity=300)]
+    (jq, tq), (jk, tk), (jv, tv) = (pair(normal(rng, 1, 2, s, 128))
+                                    for s in (130, 2700, 2700))
+    want = fa.flash_attention_streaming_rope(jq, jk, jv, *(j for j, _ in tabs))
+    got = t_fa.flash_attention_rope(tq, tk, tv, *(t for _, t in tabs))
+    assert_close(got, want, 3e-5)
+
+
 @pytest.mark.parametrize("m,k,n", [(40, 1024, 384), (40, 1536, 384)])
 def test_w4a8_plain_version_bit_identical_to_pallas(pallas, m, k, n):
     _, qm = pallas
@@ -83,9 +121,16 @@ def test_wrappers_take_plain_version_only_on_cpu():
     w = torch.randint(-128, 128, (32, 8), dtype=torch.int8)
     assert torch.equal(t_qm.w4a8_matmul(xq, xs, w, ws),
                        t_qm.w4a8_matmul_ref(xq, xs, w, ws))
-    launches = (t_fa.launches, t_qm.launches)
+    q64 = torch.from_numpy(normal(rng, 1, 2, 9, 64)).requires_grad_()
+    assert torch.equal(t_fa.flash_attention(q64, q64, q64),
+                       t_fa.flash_attention_ref(q64, q64, q64))
+    t_fa.flash_attention(q64, q64, q64).sum().backward()   # CPU: autograd of the plain version
+    assert q64.grad is not None
+    launches = (t_fa.launches, t_fa.norope_launches, t_qm.launches)
     with pytest.raises(ValueError):
         t_qm.w4a8_matmul(xq.to("meta"), xs.to("meta"), w.to("meta"), ws.to("meta"))
     with pytest.raises(ValueError):
         t_fa.flash_attention_rope(*(t.to("meta") for t in (q, q, q, *tabs)))
-    assert launches == (t_fa.launches, t_qm.launches)
+    with pytest.raises(ValueError):
+        t_fa.flash_attention(*(q64.detach().to("meta"),) * 3)
+    assert launches == (t_fa.launches, t_fa.norope_launches, t_qm.launches)

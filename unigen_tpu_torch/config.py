@@ -1,9 +1,10 @@
-"""Config dataclasses of the FLUX family (a copy of ``unigen_tpu/config.py``).
+"""Config dataclasses of the FLUX and SD3 families (a copy of
+``unigen_tpu/config.py``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-Only the FLUX pieces the port reads are here: the backbone, the control
-branch with its MoE, the model config that joins them, and the training
-hyperparameters.
+Only the pieces the port reads are here: the FLUX and SD3 backbones, the
+control branch with its MoE, the model config that joins them, and the
+training hyperparameters.
 """
 
 from __future__ import annotations
@@ -37,6 +38,28 @@ class FluxBackboneConfig:
 
 
 @dataclass(frozen=True)
+class SD3BackboneConfig:
+    """SD3 / SD3.5 MMDiT backbone hyperparameters."""
+    sample_size: int = 128
+    patch_size: int = 2
+    in_channels: int = 16
+    num_layers: int = 24                   # SD3.5-medium: 24 (w/ dual attn 0..12)
+    attention_head_dim: int = 64
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    caption_projection_dim: int = 1536
+    pooled_projection_dim: int = 2048
+    out_channels: int = 16
+    pos_embed_max_size: int = 384
+    dual_attention_layers: Tuple[int, ...] = tuple(range(13))
+    qk_norm: Optional[str] = "rms_norm"
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     """Condition-expert MoE: GShard top-1 routing with a static capacity.
 
@@ -65,7 +88,9 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ControlConfig:
     """Condition-weaving control branch. ``use_rope=True`` is the only
-    shape-consistent FLUX configuration (see the JAX package's note)."""
+    shape-consistent FLUX configuration (see the JAX package's note); SD3
+    presets set False. ``extra_conditioning_channels`` and ``num_layers``
+    (the control depth) are read by SD3 only."""
     use_transformer_params: bool = True
     use_pooled_prompt_embeds: bool = True
     use_encoder_hidden_states: bool = True
@@ -85,9 +110,10 @@ class ControlConfig:
 
 @dataclass(frozen=True)
 class UniGenConfig:
-    """FLUX backbone + control branch + condition types."""
+    """Backbone family (flux | sd3) + control branch + condition types."""
     family: str = "flux"
     flux: FluxBackboneConfig = field(default_factory=FluxBackboneConfig)
+    sd3: SD3BackboneConfig = field(default_factory=SD3BackboneConfig)
     control: ControlConfig = field(default_factory=ControlConfig)
     condition_types: Tuple[str, ...] = ("canny",)
 
@@ -96,8 +122,8 @@ class UniGenConfig:
         return len(self.condition_types)
 
     @property
-    def backbone(self) -> FluxBackboneConfig:
-        return self.flux
+    def backbone(self):
+        return {"flux": self.flux, "sd3": self.sd3}[self.family]
 
 
 @dataclass(frozen=True)
@@ -141,6 +167,18 @@ def tiny_flux_config(**overrides) -> FluxBackboneConfig:
     )
     base.update(overrides)
     return FluxBackboneConfig(**base)
+
+
+def tiny_sd3_config(**overrides) -> SD3BackboneConfig:
+    """A miniature SD3 config for tests (same topology, tiny dims)."""
+    base = dict(
+        sample_size=16, patch_size=2, in_channels=4, num_layers=4,
+        attention_head_dim=8, num_attention_heads=4, joint_attention_dim=32,
+        caption_projection_dim=32, pooled_projection_dim=24, out_channels=4,
+        pos_embed_max_size=32, dual_attention_layers=(0, 1), qk_norm="rms_norm",
+    )
+    base.update(overrides)
+    return SD3BackboneConfig(**base)
 
 
 def replace(cfg, **kw):

@@ -1,7 +1,9 @@
-// Pieces shared by the fused RoPE attention kernels (forward and backward):
-// the bf16 tensor-core product, bf16 packing, loads and stores of bf16 or
-// fp32 rows, and the staging of a tile of rows into shared memory, rotated in
-// fp32 and rounded to bf16.
+// Pieces shared by the attention kernels (the fused RoPE forward and
+// backward, and the rope-free forward): the bf16 tensor-core product, bf16
+// packing, loads and stores of bf16 or fp32 rows, and the staging of a tile
+// of rows into shared memory, rotated in fp32 and rounded to bf16 where
+// tables are given. The head dim is 128 for the RoPE kernels (attn::D);
+// stage_rows also takes 64 (the rope-free kernel's SD3 heads).
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -20,8 +22,13 @@
 
 namespace attn {
 
-constexpr int D = 128;       // head dim
+constexpr int D = 128;       // head dim of the RoPE kernels
 constexpr int LD = D + 8;    // shared row stride in bf16 (conflict-free)
+
+// Shared row stride in bf16 for head dim HD: 16 bytes of padding keep the
+// fragment loads of the eight rows a quad group reads on distinct banks.
+template <int HD>
+__host__ __device__ constexpr int ld_of() { return HD + 8; }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -124,19 +131,21 @@ __device__ __forceinline__ uint4 rotate8(const float (&xv)[8], const float* cos,
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Stage rows [r0, r0+ROWS) of x (row length D, bf16 or fp32) into shared
-// memory as bf16, rotated by the table rows when cos != nullptr (then rounded
-// to bf16, as the plain version rounds). bf16 rows without rotation are
-// copied as they are; fp32 rows are rounded to bf16, the tensor cores'
-// operand type. Rows at or past n are zeros.
-template <int ROWS, int THREADS, typename T>
+// Stage rows [r0, r0+ROWS) of x (row length HD, bf16 or fp32) into shared
+// memory as bf16 with row stride ld_of<HD>(), rotated by the table rows when
+// cos != nullptr (then rounded to bf16, as the plain version rounds). bf16
+// rows without rotation are copied as they are; fp32 rows are rounded to
+// bf16, the tensor cores' operand type. Rows at or past n are zeros, so a
+// ragged tail never feeds 0 x garbage (NaN) to a product.
+template <int ROWS, int THREADS, typename T, int HD = D>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* x,
                                            const float* cos, const float* sin,
                                            int r0, int n) {
-  for (int c = threadIdx.x; c < ROWS * D / 8; c += THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+  constexpr int ldh = ld_of<HD>();
+  for (int c = threadIdx.x; c < ROWS * HD / 8; c += THREADS) {
+    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
     const int row = r0 + r;
-    const size_t off = (size_t)row * D + col;
+    const size_t off = (size_t)row * HD + col;
     uint4 packed = make_uint4(0, 0, 0, 0);
     if (row < n) {
       if constexpr (std::is_same_v<T, __nv_bfloat16>) {
@@ -159,7 +168,7 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* x,
         }
       }
     }
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = packed;
+    *reinterpret_cast<uint4*>(dst + r * ldh + col) = packed;
   }
 }
 

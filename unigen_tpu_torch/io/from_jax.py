@@ -15,6 +15,7 @@ bench's direct quantized init: the W4A8 serving tree's shapes come from the
 port's own init and quantize run on the meta device, and each leaf is filled
 on the target device (uniform int8 codes, ``w_scale`` in [1e-4, 1e-3],
 float leaves N(0, 0.02)), so the bf16 source tree is never built.
+``init_sd3_serving_params`` does the same for the bf16 UniGen-SD3 tree.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 
 from unigen_tpu_torch.config import UniGenConfig
 from unigen_tpu_torch.models.unigen_flux import init_unigen_flux_params
+from unigen_tpu_torch.models.unigen_sd3 import init_unigen_sd3_params
+from unigen_tpu_torch.ops.packing import sincos_2d_pos_embed
 from unigen_tpu_torch.ops.quant import quantize_unigen_serving
 from unigen_tpu_torch.train.train_step import OptState
 from unigen_tpu_torch.utils import resolve_device, tree_map
@@ -97,4 +100,36 @@ def init_quantized_serving_params(cfg: UniGenConfig, device=None,
     def walk(node):
         return {k: walk(v) if isinstance(v, dict) else fill(k, v)
                 for k, v in node.items()}
+    return walk(shapes)
+
+
+def init_sd3_serving_params(cfg: UniGenConfig, seed: int = 0, device=None,
+                            dtype=torch.bfloat16) -> dict:
+    """Random UniGen-SD3 serving tree in the exact layout of
+    ``init_unigen_sd3_params(cfg, dtype=dtype)`` (shapes from the meta
+    device), filled leaf by leaf on ``device`` from ``seed``: the sincos
+    position tables computed (fp32), norm scales one, every other leaf
+    N(0, 0.02) in its dtype (the router gate stays fp32; the zero-init add
+    linears are filled too, so the control branch reaches the output)."""
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"           # shapes only
+           else torch.Generator(device=dev).manual_seed(seed))
+    bb = cfg.sd3
+    table = sincos_2d_pos_embed(bb.inner_dim, bb.pos_embed_max_size,
+                                bb.sample_size // bb.patch_size, device=dev)
+    shapes = init_unigen_sd3_params(cfg, device="meta", dtype=dtype)
+
+    def fill(name, meta):
+        if name == "pos_embed":
+            return table.clone()
+        out = torch.empty(meta.shape, dtype=meta.dtype, device=dev)
+        return out.fill_(1.0) if name == "scale" else out.normal_(
+            0.0, 0.02, generator=gen)
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return fill(name, node)
     return walk(shapes)

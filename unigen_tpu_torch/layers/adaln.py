@@ -4,6 +4,8 @@ Port of ``unigen_tpu/layers/adaln.py``. Chunk orders match the checkpoints:
   zero      (6): shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp
   single    (3): shift_msa, scale_msa, gate_msa
   continuous(2): scale, shift            <- scale FIRST
+  sd35x     (9): shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp,
+                 shift_msa2, scale_msa2, gate_msa2
 """
 
 from __future__ import annotations
@@ -52,3 +54,18 @@ def adaln_continuous(p: dict, x: torch.Tensor, temb: torch.Tensor
     """AdaLayerNormContinuous (final norm_out): scale chunked FIRST."""
     scale, shift = _mod(p, temb, 2)
     return modulate(layer_norm(x), shift, scale)
+
+
+def adaln_sd35x(p: dict, x: torch.Tensor, temb: torch.Tensor
+                ) -> Tuple[torch.Tensor, ...]:
+    """SD35AdaLayerNormZeroX (dual attention): returns (normed_x, gate_msa,
+    shift_mlp, scale_mlp, gate_mlp, normed_x2, gate_msa2)."""
+    s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp, s2, sc2, g2 = _mod(p, temb, 9)
+    normed = layer_norm(x)
+    return (modulate(normed, s_msa, sc_msa), g_msa, s_mlp, sc_mlp, g_mlp,
+            modulate(normed, s2, sc2), g2)
+
+
+def gate(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Apply a gate that is already sequence-broadcastable (from ``_mod``)."""
+    return g * x

@@ -1,5 +1,5 @@
-"""Timestep and pooled-text embedders (port of ``unigen_tpu/layers/embeddings.py``,
-the FLUX part)."""
+"""Timestep, pooled-text and SD3 patch embedders (port of
+``unigen_tpu/layers/embeddings.py``, the FLUX and SD3 parts)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from unigen_tpu_torch.layers.core import init_linear, linear
+from unigen_tpu_torch.ops.packing import (cropped_pos_embed, patchify,
+                                          sincos_2d_pos_embed)
 
 
 def timestep_sinusoidal(t: torch.Tensor, dim: int = 256, *,
@@ -53,3 +55,30 @@ def combined_time_text(p: dict, timestep: torch.Tensor, pooled: torch.Tensor,
         emb = emb + timestep_embedder(p["guidance"],
                                       timestep_sinusoidal(guidance).to(dtype))
     return emb + timestep_embedder(p["text"], pooled.to(dtype))
+
+
+# ---------------------------------------------------------------- SD3 patch embed
+
+def init_patch_embed(patch_size: int, in_channels: int, embed_dim: int,
+                     pos_embed_max_size: int, base_size: int, *,
+                     pos_embed_type: str = "sincos", gen=None, device=None,
+                     dtype=torch.float32) -> dict:
+    """The conv patch embedder as a linear over patchified pixels, plus the
+    [max_size**2, D] sincos table (kept in fp32 whatever ``dtype``)."""
+    p = {"proj": init_linear(in_channels * patch_size * patch_size, embed_dim,
+                             gen=gen, device=device, dtype=dtype)}
+    if pos_embed_type == "sincos":
+        p["pos_embed"] = sincos_2d_pos_embed(embed_dim, pos_embed_max_size,
+                                             base_size, device=device)
+    return p
+
+
+def patch_embed(p: dict, x: torch.Tensor, patch_size: int,
+                pos_embed_max_size: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, S, D] plus the center-cropped position table."""
+    hp, wp = x.shape[2] // patch_size, x.shape[3] // patch_size
+    tokens = linear(p["proj"], patchify(x, patch_size))
+    if "pos_embed" in p:
+        pos = cropped_pos_embed(p["pos_embed"], pos_embed_max_size, hp, wp)
+        tokens = tokens + pos.to(tokens.dtype)[None]
+    return tokens

@@ -1,18 +1,23 @@
-"""Condition-expert MoE with modulated experts (port of
-``unigen_tpu/models/moe.py``, top-1 routing for serving and training).
+"""Condition-expert MoE (port of ``unigen_tpu/models/moe.py``, top-1
+routing for serving and training).
 
 A GShard top-1 router on (hidden + condition) routes every stream with one
-set of slots; each expert is a pair of modulated linears computed as
-batched matmuls over the expert axis; the gather combine weights by the gate.
-``batch_mode="per_sample"`` routes each sample with its own capacity (the
-JAX ``vmap`` over samples becomes a loop over the batch). ``training``
+set of slots; each expert is either a pair of modulated linears computed as
+batched matmuls over the expert axis (FLUX, ``use_rope or use_modulate``),
+or a pair of single transformer blocks with token-wise temb (SD3's shipped
+config): the JAX ``vmap`` over the expert axis becomes a loop over the
+experts, one block call per expert and stream. The gather combine weights
+by the gate. ``batch_mode="per_sample"`` routes each sample with its own
+capacity (the JAX ``vmap`` over samples becomes a loop over the batch);
+``"global"`` routes all B*S tokens with one capacity ceil(B*S/E), so a
+sample's output depends on its batch mates, as in JAX. ``training``
 routes with ``capacity_factor`` instead of ``eval_capacity_factor``; top-1
 without random token selection draws no random numbers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -20,7 +25,7 @@ from unigen_tpu_torch.config import ControlConfig
 from unigen_tpu_torch.layers.core import init_linear
 from unigen_tpu_torch.ops import gating
 from unigen_tpu_torch.ops.modulation import batched_modulated_linear
-from unigen_tpu_torch.utils import init_stacked, promote
+from unigen_tpu_torch.utils import index_params, init_stacked, promote
 
 
 class MoEOutput(NamedTuple):
@@ -30,23 +35,28 @@ class MoEOutput(NamedTuple):
     expert_counts: torch.Tensor      # [E]
 
 
-def init_moe_params(dim: int, pooled_dim: int, num_experts: int, *, gen=None,
-                    device=None, dtype=torch.float32) -> dict:
-    """Modulated experts: two [Linear(d, d), Linear(pooled, d)] pairs each.
-    The router gate stays fp32."""
+def init_moe_params(dim: int, pooled_dim: int, num_experts: int, *,
+                    modulated: bool = True,
+                    expert_block_init: Optional[Callable[[], dict]] = None,
+                    gen=None, device=None, dtype=torch.float32) -> dict:
+    """modulated=True: each expert is two [Linear(d, d), Linear(pooled, d)]
+    pairs. Otherwise each expert is a pair of single transformer blocks
+    built by ``expert_block_init``. The router gate stays fp32."""
     kw = dict(gen=gen, device=device, dtype=dtype)
-
-    def stack_lin(i, o):
-        return init_stacked(num_experts, lambda: init_linear(i, o, **kw))
-
-    return {
-        "gate": init_linear(dim, num_experts, bias=False, gen=gen,
-                            device=device, dtype=torch.float32),
-        "experts": {"cond_mod": stack_lin(dim, dim),
-                    "cond_pool": stack_lin(pooled_dim, dim),
-                    "hid_mod": stack_lin(dim, dim),
-                    "hid_pool": stack_lin(pooled_dim, dim)},
-    }
+    p = {"gate": init_linear(dim, num_experts, bias=False, gen=gen,
+                             device=device, dtype=torch.float32)}
+    if modulated:
+        def stack_lin(i, o):
+            return init_stacked(num_experts, lambda: init_linear(i, o, **kw))
+        p["experts"] = {"cond_mod": stack_lin(dim, dim),
+                        "cond_pool": stack_lin(pooled_dim, dim),
+                        "hid_mod": stack_lin(dim, dim),
+                        "hid_pool": stack_lin(pooled_dim, dim)}
+    else:
+        assert expert_block_init is not None
+        p["experts"] = {"hid_block": init_stacked(num_experts, expert_block_init),
+                        "cond_block": init_stacked(num_experts, expert_block_init)}
+    return p
 
 
 def _expert_compute_modulated(experts: dict, routed: Dict[str, torch.Tensor]):
@@ -66,16 +76,31 @@ def _expert_compute_modulated(experts: dict, routed: Dict[str, torch.Tensor]):
     return hid_out, cond_out
 
 
+def _expert_compute_blocks(experts: dict, routed: Dict[str, torch.Tensor], *,
+                           block_apply: Callable, heads: int):
+    """Per-expert single-transformer-block experts on dispatched [E, C, *]
+    inputs, with the token-wise temb [E, C, D] of each stream."""
+    hid, cond = [], []
+    for e in range(routed["hidden"].shape[0]):
+        hid.append(block_apply(index_params(experts["hid_block"], e),
+                               routed["hidden"][e:e + 1],
+                               routed["temb"][e:e + 1], heads=heads))
+        cond.append(block_apply(index_params(experts["cond_block"], e),
+                                routed["condition"][e:e + 1],
+                                routed["condition_temb"][e:e + 1], heads=heads))
+    return torch.cat(hid), torch.cat(cond)
+
+
 def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
               hidden: torch.Tensor, condition: torch.Tensor,
               streams: Dict[str, torch.Tensor], *,
+              block_apply: Optional[Callable] = None,
+              heads: Optional[int] = None,
               training: bool = False) -> MoEOutput:
     """Route on (hidden + condition), dispatch all streams, run the experts,
-    combine. ``streams`` holds condition_pooled/pooled (and temb streams,
-    which are routed alongside)."""
-    if "cond_mod" not in params["experts"]:
-        raise NotImplementedError("block experts (use_rope=False and "
-                                  "use_modulate=False) wait for a later slice")
+    combine. ``streams`` holds condition_pooled/pooled and the temb streams,
+    which are routed alongside; block experts (``block_apply``, ``heads``)
+    read the routed temb and condition_temb."""
     if cfg.moe.top_k != 1 or not cfg.moe.fast_dispatch:
         raise NotImplementedError("the port routes top-1 with the gather "
                                   "dispatch only; top-2 waits for a later slice")
@@ -87,6 +112,7 @@ def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
         outs = [moe_apply(params, cfg, num_experts, hidden[i:i + 1],
                           condition[i:i + 1],
                           {k: v[i:i + 1] for k, v in streams.items()},
+                          block_apply=block_apply, heads=heads,
                           training=training)
                 for i in range(b)]
         return MoEOutput(torch.cat([o.expert_hidden for o in outs]),
@@ -104,7 +130,11 @@ def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
     routed = {"hidden": hidden, "condition": condition, **streams}
     routed, dest = gating.dispatch_streams_gather(gate_out, capacity,
                                                   num_experts, s, routed)
-    hid_out, cond_out = _expert_compute_modulated(params["experts"], routed)
+    if "cond_mod" in params["experts"]:
+        hid_out, cond_out = _expert_compute_modulated(params["experts"], routed)
+    else:
+        hid_out, cond_out = _expert_compute_blocks(
+            params["experts"], routed, block_apply=block_apply, heads=heads)
     out_h = gating.combine_gather(gate_out, dest, hid_out, hidden.dtype)
     out_c = gating.combine_gather(gate_out, dest, cond_out, hidden.dtype)
     return MoEOutput(out_h.reshape(b, s, d), out_c.reshape(b, s, d),

@@ -4,7 +4,11 @@ Port of ``unigen_tpu/ops/attention.py``. ``sdpa_ref`` is the plain version
 of ``sdpa_xla`` (fp32 logits and softmax, probabilities cast to the value
 dtype for the second product). ``sdpa`` with rope tables runs the fused
 RoPE attention, a ``torch.autograd.Function`` whose forward and backward are
-the CUDA kernels on the card and the plain versions on the CPU.
+the CUDA kernels on the card and the plain versions on the CPU; without
+rope it runs the rope-free attention, the CUDA kernel on the card (forward
+only: it raises where a gradient would be recorded) and the plain version
+on the CPU. The TPU's split between full-KV and streaming kernels at 2560
+keys has no counterpart: the card's kernels take any length.
 """
 
 from __future__ import annotations
@@ -36,12 +40,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """rope: (cos, sin) [S, D] tables, or (cos, sin, kcos, ksin) with
     separate K-side tables (the KV-append convention)."""
     if rope is None:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "rope-free attention on CUDA is the flash_attention kernel "
-                "(unigen_tpu/ops/pallas/flash_attention.py:162), which a later "
-                "slice of the port brings; the FLUX serving path always passes rope")
-        return sdpa_ref(q, k, v)
+        return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     cos, sin = rope[0], rope[1]
     kcos, ksin = (rope[2], rope[3]) if len(rope) == 4 else (cos, sin)
     tables = [t.to(torch.float32).contiguous() for t in (cos, sin, kcos, ksin)]

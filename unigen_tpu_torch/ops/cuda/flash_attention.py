@@ -1,26 +1,40 @@
-"""Fused RoPE + attention, forward and backward: the CUDA kernels
-``csrc/flash_attention_rope.cu`` and ``csrc/flash_attention_rope_bwd.cu``
-and their plain PyTorch versions.
+"""Attention kernels: the fused RoPE attention forward and backward
+(``csrc/flash_attention_rope.cu``, ``csrc/flash_attention_rope_bwd.cu``),
+the rope-free forward (``csrc/flash_attention.cu``), and their plain
+PyTorch versions.
 
-Replaces ``unigen_tpu/ops/pallas/flash_attention.py``
-(``flash_attention_rope`` -> ``_attn_rope_kernel``, and its VJP
-``_flash_rope_bwd`` -> ``_attn_bwd_rope_kernel`` or the kv-blocked
-``_lse_rope_kernel``/``_dq_blk_rope_kernel``/``_dkv_blk_rope_kernel``):
-non-causal softmax(rot(q) rot(k)^T / sqrt(D)) v with interleaved-pair rotary
-taken in fp32 and rounded to the input dtype before the product. cos/sin
-[Sq, D] are the Q-side tables, kcos/ksin [Skv, D] the K-side ones (identity
-rows for KV-append keys). The kernels take q, k, v [B, H, S, 128] in bf16,
-or all in fp32 (the ``Trainer``'s fp32 activations): fp32 operands are
-rounded to bf16 for the tensor cores where they are staged, as bf16 ones are
-after the rotation, and the results are written in fp32.
+Replaces ``unigen_tpu/ops/pallas/flash_attention.py``:
+
+- ``flash_attention_rope`` -> ``_attn_rope_kernel`` (and, past 2560 keys,
+  ``flash_attention_streaming_rope`` -> ``_stream_rope_kernel``), and its
+  VJP ``_flash_rope_bwd`` -> ``_attn_bwd_rope_kernel`` or the kv-blocked
+  ``_lse_rope_kernel``/``_dq_blk_rope_kernel``/``_dkv_blk_rope_kernel``:
+  non-causal softmax(rot(q) rot(k)^T / sqrt(D)) v with interleaved-pair
+  rotary taken in fp32 and rounded to the input dtype before the product.
+  cos/sin [Sq, D] are the Q-side tables, kcos/ksin [Skv, D] the K-side ones
+  (identity rows for KV-append keys). The kernels take q, k, v
+  [B, H, S, 128] in bf16, or all in fp32 (the ``Trainer``'s fp32
+  activations): fp32 operands are rounded to bf16 for the tensor cores where
+  they are staged, as bf16 ones are after the rotation, and the results are
+  written in fp32.
+- ``flash_attention`` -> ``_attn_kernel`` (and, past 2560 keys,
+  ``flash_attention_streaming`` -> ``_stream_kernel``): the same attention
+  without rotary, at head dim 64 (SD3) or 128, any Sq and Skv. Forward
+  only: its backward (the TPU's ``_attn_bwd_kernel`` and kv-blocked
+  ``_lse_kernel``/``_dq_blk_kernel``/``_dkv_blk_kernel``) is not ported, so
+  a CUDA call that would record a gradient raises.
+
+On the card one online-softmax kernel walks KV in tiles at any length, so
+each TPU pair (full-KV and streaming) has one kernel here.
 
 ``flash_attention_rope`` is a ``torch.autograd.Function``: its forward saves
 q, k, v, the tables, the output and the row log-sum-exp; its backward gives
 dq, dk, dv and no gradient for the tables (the JAX VJP returns zeros for
 them). On CUDA tensors both directions launch kernels; on CPU tensors both
 take the plain versions. The two directions go through the module-level
-``flash_attention_rope_fwd`` and ``flash_attention_rope_bwd``, so a caller
-can route both at once.
+``flash_attention_rope_fwd`` and ``flash_attention_rope_bwd``, and the
+rope-free forward through ``flash_attention_fwd``, so a caller can route
+all of them at once.
 """
 
 from __future__ import annotations
@@ -35,11 +49,14 @@ from unigen_tpu_torch.ops.rope import apply_rotary
 
 KERNEL = "flash_attention_rope"
 KERNEL_BWD = "flash_attention_rope_bwd"
-HEAD_DIM = 128
+KERNEL_NOROPE = "flash_attention"
+HEAD_DIM = 128                  # the RoPE kernels
+HEAD_DIMS_NOROPE = (64, 128)    # the rope-free kernel
 # kernel launches, counted by the wrappers; reset by callers
-launches = 0          # forward
-dq_launches = 0       # backward, dQ kernel
-dkv_launches = 0      # backward, dK/dV kernel
+launches = 0          # RoPE forward
+dq_launches = 0       # RoPE backward, dQ kernel
+dkv_launches = 0      # RoPE backward, dK/dV kernel
+norope_launches = 0   # rope-free forward
 
 
 def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
@@ -76,18 +93,20 @@ def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# C entry points: (library, pointer arguments, float arguments); each also
-# takes BH, Sq, Skv ints before the floats, then an fp32 flag and the stream
-_ENTRIES = {"flash_attention_rope": (KERNEL, 9, 1),
-            "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 12, 2),
-            "flash_attention_rope_bwd_dq": (KERNEL_BWD, 11, 2)}
+# C entry points: (library, pointer arguments, int arguments, float
+# arguments); the ints are BH, Sq, Skv (and D for the rope-free kernel), and
+# every entry ends with an fp32 flag and the stream
+_ENTRIES = {"flash_attention_rope": (KERNEL, 9, 3, 1),
+            "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 12, 3, 2),
+            "flash_attention_rope_bwd_dq": (KERNEL_BWD, 11, 3, 2),
+            "flash_attention": (KERNEL_NOROPE, 4, 4, 1)}
 
 
 def _entry(name: str):
-    kernel, n_ptr, n_float = _ENTRIES[name]
+    kernel, n_ptr, n_int, n_float = _ENTRIES[name]
     fn = getattr(build.load(kernel), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float] * n_float + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -250,3 +269,66 @@ def flash_attention_rope(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
                                     or v.requires_grad):
         return _FlashAttentionRope.apply(q, k, v, cos, sin, kcos, ksin)
     return flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin)[0]
+
+
+# ---------------------------------------------------------------- rope-free
+
+def flash_attention_ref(q, k, v) -> torch.Tensor:
+    """Plain version: the fp32-softmax attention of ``ops/attention.sdpa_ref``
+    (probabilities cast to the value dtype for the second product)."""
+    from unigen_tpu_torch.ops.attention import sdpa_ref
+    return sdpa_ref(q, k, v)
+
+
+def flash_attention_fwd(q, k, v) -> torch.Tensor:
+    """Rope-free forward. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (and count the launch) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    what = "flash_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {q.device} are neither CPU nor CUDA")
+    dt = q.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"{what}: q, k, v must be one of {_DTYPES}, got {dt}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous() \
+                or t.dim() != 4:
+            raise ValueError(f"{what}: {name} must be a contiguous [B, H, S, D] "
+                             f"{dt} tensor on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    b, h, sq, d = q.shape
+    if d not in HEAD_DIMS_NOROPE or k.shape[:2] != (b, h) or k.shape[3] != d \
+            or v.shape != k.shape:
+        raise ValueError(f"{what}: head dim must be one of {HEAD_DIMS_NOROPE}, "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must agree")
+    if k.shape[2] == 0:
+        raise ValueError(f"{what}: empty key sequence")
+    out = torch.empty_like(q)
+    if b * h * sq == 0:
+        return out
+    scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+    err = _entry("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
+        k.shape[2], d, scale_log2, int(dt == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, KERNEL_NOROPE)
+    global norope_launches
+    norope_launches += 1
+    return out
+
+
+def flash_attention(q, k, v) -> torch.Tensor:
+    """q [B,H,Sq,D], k/v [B,H,Skv,D], D in (64, 128), any lengths. CPU
+    tensors take the plain version (differentiable by autograd); CUDA tensors
+    launch the kernel. Its backward is not ported: on CUDA, a call that
+    would record a gradient raises rather than run the plain math."""
+    if q.device.type == "cuda" and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError(
+            "the rope-free attention backward is not ported to CUDA yet: it "
+            "is rows 5p and 6p of the kernel table (_attn_bwd_kernel, and "
+            "_lse_kernel/_dq_blk_kernel/_dkv_blk_kernel in "
+            "unigen_tpu/ops/pallas/flash_attention.py)")
+    return flash_attention_fwd(q, k, v)

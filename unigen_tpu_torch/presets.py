@@ -1,4 +1,5 @@
-"""Named FLUX presets (a copy of the ones in ``unigen_tpu/presets.py``)."""
+"""Named FLUX and SD3 presets (a copy of the ones in
+``unigen_tpu/presets.py``)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,29 @@ def flux_full(condition_types=("canny",)) -> C.UniGenConfig:
         control=C.ControlConfig(moe=C.MoEConfig(batch_mode="per_sample")),
         condition_types=tuple(condition_types),
     )
+
+
+def sd35_medium(condition_types=("depth",), **ctrl_overrides) -> C.UniGenConfig:
+    """SD3.5-medium: 24 joint blocks (dual attention on 0..12) at width 1536
+    (24 heads x 64), a 24-block control stack, block experts, global
+    routing; rope-free."""
+    ctrl_overrides.setdefault("use_rope", False)
+    return C.UniGenConfig(
+        family="sd3",
+        sd3=C.SD3BackboneConfig(),
+        control=C.ControlConfig(**ctrl_overrides),
+        condition_types=tuple(condition_types),
+    )
+
+
+def baseline_configs() -> dict:
+    """The ``BASELINE.md`` configurations the port serves so far (model
+    config and run settings, as ``unigen_tpu/presets.baseline_configs``)."""
+    return {
+        # 2. UniGenSD3 depth single-condition (SD3.5-medium, 28-step)
+        "sd3_depth_28step": dict(cfg=sd35_medium(("depth",)),
+                                 steps=28, resolution=512, guidance=7.0),
+    }
 
 
 def tiny(condition_types=("canny",)) -> C.UniGenConfig:
