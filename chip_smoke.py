@@ -28,7 +28,9 @@ Phases, in order; any failure exits non-zero:
      trainable count, launch counts equal to the config's (remat recompute
      included), a profiled micro-step, and the trainable gradients of one
      micro-step against the same step with the plain versions (relative L2
-     within 3e-2).
+     within 3e-2), in which every attention backward call is also held
+     against its plain version on its own q, k, v, O, lse with dO at unit
+     scale (backward_path_check).
   6. trainer: Trainer.step on the same tree with stub encoders, 1 warm-up +
      2 timed steps: the Trainer upcasts the trainable subset to fp32 and
      the encoders give fp32 latents and embeddings (as the JAX Trainer
@@ -37,6 +39,14 @@ Phases, in order; any failure exits non-zero:
   7. flux_1024: one b=1 request through the same W4A8 tree at 1024^2, 4
      steps (attention over 4608, 8192 and 8704 keys, past the TPU's
      2560-key streaming gate): launch counts and a per-call path check.
+  7b. train_blocks: phase 5's step on the W4A8 tree of flux_full with the
+     reference's shipped control values (use_rope = use_modulate = False:
+     rope-free control blocks and weave, 6 block experts of two FLUX single
+     blocks each, left in bf16 and trained): finite losses, the trainable
+     count, launch counts of all six attention kernels and W4A8 equal to
+     the config's, the peak memory, train_blocks_profile, and
+     train_blocks_grad_check against the plain versions (relative L2
+     within 3e-2).
   8. sd3: the full-width bf16 UniGen-SD3.5-medium (sd3_depth_28step: 24
      joint blocks, dual attention on 0..12, width 1536 = 24 heads x 64, 24
      control blocks, 6 block experts + the shared expert, global routing)
@@ -51,9 +61,10 @@ Phases, in order; any failure exits non-zero:
      (4429, 4096, 8192 and 8525 keys): launch counts and the path check.
  10. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
-shape of the SD3 paths (D=64, ragged lengths) and both attention kernels at
-the 1024^2 lengths; plain versions past ~2 GB of fp32 logits run in head
-chunks. It imports neither JAX nor the JAX package.
+shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
+the 1024^2 lengths, and the rope-free backward at train_blocks' shapes and
+SD3's; plain versions past ~2 GB of fp32 logits run in head chunks. It
+imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -95,14 +106,39 @@ LOGITS_BUDGET = 2 ** 31   # bytes of fp32 logits a plain call may hold at once
 SEQ_TXT, HW = 512, 32     # 512^2 image -> 64^2 latents -> 32^2 = 1024 tokens
 STEPS, N_REQUESTS, BATCH = 4, 4, 2
 TRAIN_MICRO_STEPS, TRAIN_ACCUM, TRAINER_STEPS = 4, 2, 2
+# the rope-free backward at the training sites of train_blocks (B, H, Sq,
+# Skv, D, dtype), and at SD3's joint length and head dim
+NOROPE_BWD_CASES = [
+    (1, 24, 1536, 1536, 128, "bfloat16"),   # control double and single blocks
+    (1, 24, 2048, 2048, 128, "bfloat16"),   # weave_cond [img | cond]
+    (1, 24, 2560, 2560, 128, "bfloat16"),   # weave_text [img | cond | txt]
+    (1, 24, 171, 171, 128, "bfloat16"),     # a block expert at capacity ceil(1024/6)
+    (1, 24, 1536, 1536, 128, "float32"),    # the Trainer's fp32 activations
+    (4, 24, 1357, 1357, 64, "bfloat16")]    # SD3.5-medium's joint blocks
 # split_trainable of the flux_full W4A8 control tree, counted by the JAX
-# package on eval_shape (tests/test_torch_port_train.py holds both to it)
+# package on eval_shape (tests/test_torch_port_train.py holds both to it):
+# with the modulated experts, and with the shipped control values' block
+# experts (145,202,432 - 141,631,488 of modulated experts + 12 FLUX single
+# blocks of 141,591,808)
 FLUX_FULL_TRAINABLE = 145_202_432
+FLUX_FULL_BLOCKS_TRAINABLE = 1_702_672_640
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
+NOROPE_BWD_NAMES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def shipped_control(cfg):
+    """``cfg`` (a UniGen config of the port or of the JAX package) with the
+    control values of the reference's shipped config/unigen.yaml:
+    use_rope = use_modulate = False, so the control blocks and the weave
+    attend without rotary and each MoE expert is a pair of FLUX single
+    blocks."""
+    import dataclasses
+    return dataclasses.replace(cfg, control=dataclasses.replace(
+        cfg.control, use_rope=False, use_modulate=False))
 
 
 def bound(ops: float, peak: float, nbytes: float):
@@ -139,13 +175,30 @@ def median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def device_ms(torch, fn, runs: int = 10) -> float:
+    """Mean device time of one call of ``fn``: the summed CUDA time of its
+    kernels under torch.profiler over ``runs`` calls after a warm-up. Unlike
+    an event pair it leaves out the gaps in which the card waits for the
+    host, which dominate a call that launches many short kernels (the
+    autograd backward of the library yardstick)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / runs / 1e3
+
+
 @contextlib.contextmanager
 def routed(**fns):
     """Route the port's kernel entry points (``flash_attention_rope_fwd``,
-    ``flash_attention_rope_bwd``, ``flash_attention_fwd`` of the attention
-    module, ``w4a8_matmul`` of the quantized one) through the given
-    functions; both directions of the attention autograd Function and the
-    rope-free forward look them up at each call."""
+    ``flash_attention_rope_bwd``, ``flash_attention_fwd``,
+    ``flash_attention_bwd`` of the attention module, ``w4a8_matmul`` of the
+    quantized one) through the given functions; both directions of both
+    attention autograd Functions look them up at each call."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     mods = {name: qm if name == "w4a8_matmul" else fa for name in fns}
@@ -169,8 +222,14 @@ def plain_kernels():
 
     def bwd(q, k, v, o, lse, do, *tables):
         return fa.flash_attention_rope_bwd_ref(q, k, v, o, do, *tables)
+
+    def norope_fwd(q, k, v, with_lse=False):
+        return chunked(fa.flash_attention_ref, q, k, v), None
+
+    def norope_bwd(q, k, v, o, lse, do):
+        return fa.flash_attention_bwd_ref(q, k, v, o, do)
     return routed(flash_attention_rope_fwd=fwd, flash_attention_rope_bwd=bwd,
-                  flash_attention_fwd=lambda q, k, v: chunked(fa.flash_attention_ref, q, k, v),
+                  flash_attention_fwd=norope_fwd, flash_attention_bwd=norope_bwd,
                   w4a8_matmul=qm.w4a8_matmul_ref)
 
 
@@ -220,6 +279,49 @@ def attention_record(torch, out, ref, args):
     return rec
 
 
+def shadowed_backwards(torch, checks, seed=0):
+    """Run every attention backward of the path as it is, and also hold the
+    kernels against the plain version on the call's own q, k, v, O and lse
+    with its dO brought to unit scale: under the random serving init the
+    gradient reaching the attention is tiny (it can flush to zero at full
+    depth), and a check at that scale would see nothing. Where dO is all
+    zero, a seeded normal draw stands in. One record per call in
+    ``checks[name]``: the path's largest |dO|, the worst of dq, dk, dv by
+    largest error over largest |value| and by relative L2, ok under
+    gradient_errors' limits."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    kernel_rope, kernel_norope = fa.flash_attention_rope_bwd, fa.flash_attention_bwd
+    gen = {}
+
+    def unit(do):
+        top = do.float().abs().max()
+        if top > 0:
+            return (do.float() / top).to(do.dtype), top.item()
+        g = gen.setdefault(do.device, torch.Generator(device=do.device).manual_seed(seed))
+        return torch.randn(do.shape, generator=g, device=do.device).to(do.dtype), 0.0
+
+    def record(name, kernel, plain, q, k, do_unit, do_max):
+        errs, ok = gradient_errors(kernel(do_unit), plain(do_unit))
+        checks.setdefault(name, []).append(dict(
+            shape=list(q.shape) + [k.shape[2]], ok=ok, do_max=do_max,
+            max_err_over_max=max(e["max_abs_err"] / max(e["max_abs"], 1e-30)
+                                 for e in errs.values()),
+            rel_l2=max(e["rel_l2"] for e in errs.values())))
+
+    def rope(q, k, v, o, lse, do, *tables):
+        record("flash_attention_rope_bwd",
+               lambda d: kernel_rope(q, k, v, o, lse, d, *tables),
+               lambda d: fa.flash_attention_rope_bwd_ref(q, k, v, o, d, *tables),
+               q, k, *unit(do))
+        return kernel_rope(q, k, v, o, lse, do, *tables)
+
+    def norope(q, k, v, o, lse, do):
+        record("flash_attention_bwd", lambda d: kernel_norope(q, k, v, o, lse, d),
+               lambda d: fa.flash_attention_bwd_ref(q, k, v, o, d), q, k, *unit(do))
+        return kernel_norope(q, k, v, o, lse, do)
+    return routed(flash_attention_rope_bwd=rope, flash_attention_bwd=norope)
+
+
 def shadowed_kernels(torch, checks):
     """Run every kernel call of the path as it is and also through its plain
     version on the same inputs; append one record per call to
@@ -240,11 +342,12 @@ def shadowed_kernels(torch, checks):
             attention_record(torch, out, ref, args))
         return out, lse
 
-    def norope(*args):
-        out, ref = kernel_norope(*args), chunked(fa.flash_attention_ref, *args)
+    def norope(*args, with_lse=False):
+        out, lse = kernel_norope(*args, with_lse=with_lse)
+        ref = chunked(fa.flash_attention_ref, *args)
         checks.setdefault("flash_attention", []).append(
             attention_record(torch, out, ref, args))
-        return out
+        return out, lse
 
     def w4a8(*args):
         out, ref = kernel_qm(*args), qm.w4a8_matmul_ref(*args)
@@ -368,24 +471,85 @@ def phase_kernels(torch, dev, seed):
         emit(row)
         rows["w4a8_matmul"].append(row)
     rows.update(backward_rows(torch, dev, g, ids))
+    rows.update(norope_backward_rows(torch, dev, g))
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     return rows
 
 
-def backward_rows(torch, dev, g, ids):
-    """The attention backward at the training path's shapes: checked against
-    the fp32 plain backward at b=1 and b=2 (B*H = 24 and 48), timed at b=1:
-    the whole backward (the D pass plus both kernels), each kernel alone,
-    the plain versions of the same outputs, and the backward of
-    scaled_dot_product_attention on pre-rotated q, k as the library
-    yardstick. Bound: 10*B*H*Sq*Skv*D operations for the whole (the count
-    the JAX kernel states), 6 and 8 for the dQ and the dK/dV kernel (the
-    products each needs: S, dP and dQ; S, dP, dV and dK), against q, k, v,
-    O, dO, lse (and the D rows for one kernel) read once and the outputs
-    written once."""
+def gradient_errors(got, want):
+    """Per gradient (dq, dk, dv): the largest error, the largest |value| of
+    the fp32 plain version and the relative L2; ok when each is within 2e-2
+    of its largest |value| and 1e-2 relative L2."""
+    errs = {}
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        x, y = x.float(), y.float()
+        den, num = y.norm().item(), (x - y).norm().item()
+        errs[name] = dict(max_abs_err=(x - y).abs().max().item(),
+                          max_abs=y.abs().max().item(),
+                          rel_l2=num / den if den > 0 else (0.0 if num == 0 else math.inf))
+    return errs, all(e["max_abs_err"] <= 2e-2 * e["max_abs"] and e["rel_l2"] <= 1e-2
+                     for e in errs.values())
+
+
+def time_backward(torch, names, shape, dims, el, row, fns):
+    """Time one checked backward shape: the whole backward (the D pass plus
+    both kernels) into ``row``, then one emitted row per kernel alone
+    (returned by name), each beside the plain version of the same outputs
+    and the backward of scaled_dot_product_attention as the library
+    yardstick; the whole one also by device time (device_ms). ``names``:
+    the dQ and dK/dV kernels; ``dims``: (B*H, Sq, Skv, D); ``fns``: whole,
+    plain, dq, plain_dq, dkv, plain_dkv, and lib(*wrt), the library
+    backward for some of the leaves ``fns["leaves"]`` (q, k, v). Bound:
+    10*B*H*Sq*Skv*D operations for the whole (the count the JAX kernel
+    states), 6 and 8 for the dQ and the dK/dV kernel (the products each
+    needs: S, dP and dQ; S, dP, dV and dK), against q, k, v, O, dO, lse
+    (and the D rows for one kernel) read once at ``el`` bytes an element
+    and the outputs written once."""
+    bh, sq, skv, d = dims
+    ql, kl, vl = fns["leaves"]
+    lib = fns["lib"]
+    io = el * (3 * bh * sq * d + 2 * bh * skv * d) + 4.0 * bh * sq
+    bms, by = bound(10.0 * bh * sq * skv * d, BF16_FLOPS,
+                    io + el * (bh * sq * d + 2 * bh * skv * d))
+    row.update(ms=median_ms(fns["whole"]), plain_ms=median_ms(fns["plain"]),
+               library_ms=median_ms(lib(ql, kl, vl)),
+               device_ms=device_ms(torch, fns["whole"]),
+               library_device_ms=device_ms(torch, lib(ql, kl, vl)),
+               bound_ms=bms, bound_by=by)
+    errs, out = row["errors"], {}
+    for name, n_ops, out_bytes, err, kern, plain, wrt in (
+            (names[0], 6, el * bh * sq * d, errs["dq"]["max_abs_err"],
+             fns["dq"], fns["plain_dq"], (ql,)),
+            (names[1], 8, 2 * el * bh * skv * d,
+             max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"]),
+             fns["dkv"], fns["plain_dkv"], (kl, vl))):
+        kb, kby = bound(n_ops * bh * sq * skv * d, BF16_FLOPS,
+                        io + 4.0 * bh * sq + out_bytes)
+        out[name] = dict(kernel=name, **shape, ok=row["ok"], max_abs_err=err,
+                         ms=median_ms(kern), plain_ms=median_ms(plain),
+                         library_ms=median_ms(lib(*wrt)), bound_ms=kb, bound_by=kby)
+        emit(out[name])
+    return out
+
+
+def library_backward(torch, leaves, do):
+    """lib(*wrt): the backward of scaled_dot_product_attention on
+    ``leaves`` (q, k, v with requires_grad) for the leaves ``wrt``."""
     import torch.nn.functional as F
+    lib_out = F.scaled_dot_product_attention(*leaves)
+
+    def lib(*wrt):
+        return lambda: torch.autograd.grad(lib_out, wrt, do, retain_graph=True)
+    return lib
+
+
+def backward_rows(torch, dev, g, ids):
+    """The RoPE backward (rows 5r/6r) at the training path's shapes: checked
+    against the fp32 plain backward at b=1 and b=2 (B*H = 24 and 48),
+    timed at b=1 by time_backward, the library yardstick on pre-rotated
+    q, k."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
     rows = {"flash_attention_rope_bwd": [], BWD_NAMES[0]: [], BWD_NAMES[1]: []}
@@ -404,16 +568,9 @@ def backward_rows(torch, dev, g, ids):
             got = fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
             torch.cuda.synchronize()
             want = fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs)
-            errs = {}
-            for name, x, y in zip(("dq", "dk", "dv"), got, want):
-                x, y = x.float(), y.float()
-                errs[name] = dict(max_abs_err=(x - y).abs().max().item(),
-                                  max_abs=y.abs().max().item(),
-                                  rel_l2=((x - y).norm() / y.norm()).item())
-            ok = all(e["max_abs_err"] <= 2e-2 * e["max_abs"] and e["rel_l2"] <= 1e-2
-                     for e in errs.values())
-            row = dict(kernel="flash_attention_rope_bwd", b=b, h=h, sq=sq, skv=skv,
-                       identity_rows=ident, errors=errs,
+            errs, ok = gradient_errors(got, want)
+            shape = dict(b=b, h=h, sq=sq, skv=skv, identity_rows=ident)
+            row = dict(kernel="flash_attention_rope_bwd", **shape, errors=errs,
                        max_abs_err=max(e["max_abs_err"] for e in errs.values()), ok=ok)
             if not ok:
                 truth = attention_bwd_fp64(torch, q, k, v, do, *tabs)
@@ -421,17 +578,13 @@ def backward_rows(torch, dev, g, ids):
                                          for x, t in zip(got, truth)]
                 row["plain_vs_fp64"] = [(x.double() - t).abs().max().item()
                                         for x, t in zip(want, truth)]
+            del got, want
             if b_mult == 1:
-                bh = b * h
-                io = 2.0 * (3 * bh * sq * d + 2 * bh * skv * d) + 4.0 * bh * sq
-                bms, by = bound(10.0 * bh * sq * skv * d, BF16_FLOPS,
-                                io + 2.0 * (bh * sq * d + 2 * bh * skv * d))
                 drow = (do.float() * out.float()).sum(-1)
                 kargs = (q, k, v, do, lse, drow, *tabs)
-                qr = apply_rotary(q, cos, sin).requires_grad_()
-                kr = apply_rotary(k, kcos, ksin).requires_grad_()
-                vr = v.clone().requires_grad_()
-                lib_out = F.scaled_dot_product_attention(qr, kr, vr)
+                leaves = (apply_rotary(q, cos, sin).requires_grad_(),
+                          apply_rotary(k, kcos, ksin).requires_grad_(),
+                          v.clone().requires_grad_())
 
                 def plain_dq():
                     _, kr32, _, ds, _ = fa._bwd_ref_parts(q, k, v, out, do, *tabs)
@@ -441,38 +594,66 @@ def backward_rows(torch, dev, g, ids):
                     qr32, _, p, ds, dof = fa._bwd_ref_parts(q, k, v, out, do, *tabs)
                     return (apply_rotary(ds.transpose(-1, -2) @ qr32, kcos, -ksin),
                             p.transpose(-1, -2) @ dof)
-
-                def lib(*wrt):
-                    return lambda: torch.autograd.grad(lib_out, wrt, do,
-                                                       retain_graph=True)
-                row.update(ms=median_ms(lambda: fa.flash_attention_rope_bwd(
-                               q, k, v, out, lse, do, *tabs)),
-                           plain_ms=median_ms(lambda: fa.flash_attention_rope_bwd_ref(
-                               q, k, v, out, do, *tabs)),
-                           library_ms=median_ms(lib(qr, kr, vr)),
-                           bound_ms=bms, bound_by=by)
-                per_kernel = (
-                    (BWD_NAMES[0], 6, 2.0 * bh * sq * d,
-                     lambda: fa.flash_attention_rope_bwd_dq(*kargs), plain_dq, lib(qr)),
-                    (BWD_NAMES[1], 8, 4.0 * bh * skv * d,
-                     lambda: fa.flash_attention_rope_bwd_dkv(*kargs), plain_dkv,
-                     lib(kr, vr)))
-                for name, n_ops, out_bytes, kern, plain, library in per_kernel:
-                    kb, kby = bound(n_ops * bh * sq * skv * d, BF16_FLOPS,
-                                    io + 4.0 * bh * sq + out_bytes)
-                    krow = dict(kernel=name, b=b, h=h, sq=sq, skv=skv,
-                                identity_rows=ident, ok=ok,
-                                max_abs_err=(errs["dq"]["max_abs_err"] if name == BWD_NAMES[0]
-                                             else max(errs["dk"]["max_abs_err"],
-                                                      errs["dv"]["max_abs_err"])),
-                                ms=median_ms(kern), plain_ms=median_ms(plain),
-                                library_ms=median_ms(library), bound_ms=kb,
-                                bound_by=kby)
-                    emit(krow)
+                per_kernel = time_backward(torch, BWD_NAMES, shape, (b * h, sq, skv, d), 2,
+                                           row, dict(
+                    whole=lambda: fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs),
+                    plain=lambda: fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs),
+                    dq=lambda: fa.flash_attention_rope_bwd_dq(*kargs), plain_dq=plain_dq,
+                    dkv=lambda: fa.flash_attention_rope_bwd_dkv(*kargs), plain_dkv=plain_dkv,
+                    leaves=leaves, lib=library_backward(torch, leaves, do)))
+                for name, krow in per_kernel.items():
                     rows[name].append(krow)
             emit(row)
             rows["flash_attention_rope_bwd"].append(row)
-            del got, want, out, lse
+            del out, lse
+    return rows
+
+
+def norope_backward_rows(torch, dev, g):
+    """Rows 5p/6p: the rope-free backward at NOROPE_BWD_CASES, checked as
+    backward_rows checks the RoPE one and timed by time_backward (fp32
+    inputs and outputs counted at 4 bytes)."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    rows = {"flash_attention_bwd": [], NOROPE_BWD_NAMES[0]: [], NOROPE_BWD_NAMES[1]: []}
+    for b, h, sq, skv, d, dtype in NOROPE_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g).to(dt)
+                       for s in (sq, skv, skv, sq))
+        out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        errs, ok = gradient_errors(got, fa.flash_attention_bwd_ref(q, k, v, out, do))
+        del got
+        shape = dict(b=b, h=h, sq=sq, skv=skv, d=d, dtype=dtype)
+        row = dict(kernel="flash_attention_bwd", **shape, errors=errs,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()), ok=ok)
+        drow = (do.float() * out.float()).sum(-1)
+        kargs = (q, k, v, do, lse, drow)
+        leaves = tuple(x.clone().requires_grad_() for x in (q, k, v))
+
+        def parts():
+            return fa._softmax_bwd_parts(q.float(), k.float(), v, out, do)
+
+        def plain_dq():
+            _, ds, _ = parts()
+            return (ds @ k.float()).to(dt)
+
+        def plain_dkv():
+            p, ds, dof = parts()
+            return ((ds.transpose(-1, -2) @ q.float()).to(dt),
+                    (p.transpose(-1, -2) @ dof).to(dt))
+        per_kernel = time_backward(torch, NOROPE_BWD_NAMES, shape, (b * h, sq, skv, d),
+                                   q.element_size(), row, dict(
+            whole=lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
+            plain=lambda: fa.flash_attention_bwd_ref(q, k, v, out, do),
+            dq=lambda: fa.flash_attention_bwd_dq(*kargs), plain_dq=plain_dq,
+            dkv=lambda: fa.flash_attention_bwd_dkv(*kargs), plain_dkv=plain_dkv,
+            leaves=leaves, lib=library_backward(torch, leaves, do)))
+        for name, krow in per_kernel.items():
+            rows[name].append(krow)
+        emit(row)
+        rows["flash_attention_bwd"].append(row)
+        del out, lse
     return rows
 
 
@@ -496,10 +677,11 @@ def device_breakdown(torch, fn, phase="profile", **extra):
     busy = sum(by_name.values())
     groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0,
               "flash_attention_rope_bwd": 0.0, "flash_attention": 0.0,
-              "library gemm": 0.0, "other": 0.0}
+              "flash_attention_bwd": 0.0, "library gemm": 0.0, "other": 0.0}
     for name, us in by_name.items():
         key = ("w4a8_matmul" if "w4a8" in name else
                "flash_attention_rope_bwd" if "flash_rope_bwd" in name else
+               "flash_attention_bwd" if "flash_bwd" in name else
                "flash_attention_rope" if "flash_rope" in name else
                "flash_attention" if "flash_kernel" in name else
                "library gemm" if any(t in name.lower() for t in
@@ -520,13 +702,16 @@ def launch_counts():
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
             BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches,
-            "flash_attention": fa.norope_launches}
+            "flash_attention": fa.norope_launches,
+            NOROPE_BWD_NAMES[0]: fa.norope_dq_launches,
+            NOROPE_BWD_NAMES[1]: fa.norope_dkv_launches}
 
 
 def reset_launch_counts():
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     fa.launches = fa.dq_launches = fa.dkv_launches = fa.norope_launches = 0
+    fa.norope_dq_launches = fa.norope_dkv_launches = 0
     qm.launches = 0
 
 
@@ -545,45 +730,65 @@ def expected_sd3_launches(cfg, batch: int = 1) -> int:
     return 2 * bb.num_layers + dual + experts + (3 if cc.use_shared_expert else 0)
 
 
-def expected_launches(params, cfg):
-    """Per forward: attention sites, and W4A8 linear calls counted from the
-    tree (a stacked leaf is used once per application of its stack)."""
+def expected_launches(params, cfg, batch: int = 1):
+    """Kernel launches of one UniGen-FLUX forward at ``batch``, by kernel:
+    the attention sites (the base blocks with rope; the control blocks and
+    the shared-expert weave with rope under ``use_rope``, rope-free
+    otherwise; with block experts, two rope-free calls per expert and
+    condition, per sample under per-sample routing), and the W4A8 linear
+    calls counted from the tree (a stacked leaf is used once per
+    application of its stack)."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
     uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers}
     w4 = sum(uses.get(path[1], 1) for path, _ in tree_leaves_with_path(params)
              if path[-1] == "w_q4")
-    attn = (2 * bb.num_layers + 2 * bb.num_single_layers
-            + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
-    return attn, w4
+    single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
+    control = (bb.num_layers + (bb.num_single_layers if single_ctrl else 0)
+               + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
+    experts = 0
+    if not (cc.use_modulate or cc.use_rope):
+        experts = 2 * cc.moe.num_experts(cfg.condition_nums) * cfg.condition_nums
+        if cc.moe.batch_mode == "per_sample":
+            experts *= batch
+    return {"flash_attention_rope": bb.num_layers + bb.num_single_layers
+            + (control if cc.use_rope else 0),
+            "flash_attention": (0 if cc.use_rope else control) + experts,
+            "w4a8_matmul": w4}
 
 
-def expected_train_launches(params, cfg):
-    """Kernel launches of one training micro-step with remat "full" and a
-    frozen base: every forward call of expected_launches, plus the forward
-    that each remat body (base + control double block i >= 1, base +
-    control single block) runs again in the backward; one backward per
-    attention call except base double block 0, which sees no trainable
+def expected_train_launches(params, cfg, batch: int = 1):
+    """Kernel launches of one training micro-step at ``batch`` with remat
+    "full" and a frozen base: every forward call of expected_launches, plus
+    the forward that each remat body (base + control double block i >= 1,
+    base + control single block) runs again in the backward; one backward
+    per attention call except base double block 0, which sees no trainable
     input."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
-    attn_pf, w4_pf = expected_launches(params, cfg)
+    per = expected_launches(params, cfg, batch)
     single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
-    attn_again = 2 * (bb.num_layers - 1) + (2 if single_ctrl else 1) * bb.num_single_layers
+    base_again = bb.num_layers - 1 + bb.num_single_layers
+    ctrl_again = bb.num_layers - 1 + (bb.num_single_layers if single_ctrl else 0)
     again = {"double_blocks": bb.num_layers - 1, "single_blocks": bb.num_single_layers}
     w4_again = sum(again.get(path[1], 0) for path, _ in tree_leaves_with_path(params)
                    if path[-1] == "w_q4")
-    return {"flash_attention_rope": attn_pf + attn_again,
-            BWD_NAMES[0]: attn_pf - 1, BWD_NAMES[1]: attn_pf - 1,
-            "w4a8_matmul": w4_pf + w4_again}
+    rope, norope = per["flash_attention_rope"], per["flash_attention"]
+    return {"flash_attention_rope": rope + base_again + (ctrl_again if cc.use_rope else 0),
+            BWD_NAMES[0]: rope - 1, BWD_NAMES[1]: rope - 1,
+            "flash_attention": norope + (0 if cc.use_rope else ctrl_again),
+            NOROPE_BWD_NAMES[0]: norope, NOROPE_BWD_NAMES[1]: norope,
+            "w4a8_matmul": per["w4a8_matmul"] + w4_again}
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
 
 
 def phase_slice(torch, dev):
     from unigen_tpu_torch import presets
     from unigen_tpu_torch.io.from_jax import init_quantized_serving_params
     from unigen_tpu_torch.models.unigen_flux import UniGenFlux
-    from unigen_tpu_torch.ops.cuda import flash_attention as fa
-    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
     from unigen_tpu_torch.serving import MicroBatchServer
     from unigen_tpu_torch.utils import param_bytes
@@ -618,10 +823,6 @@ def phase_slice(torch, dev):
     torch.cuda.synchronize()
     print(f"# slice: warm-up forward {time.time() - t0:.2f}s", flush=True)
 
-    def launches_now():
-        return (("flash_attention_rope", fa.launches),
-                ("w4a8_matmul", qm.launches))
-
     srv = MicroBatchServer(lambda x: model.denoise(**x, num_steps=STEPS),
                            batch_size=BATCH, max_wait_ms=50)
     torch.cuda.reset_peak_memory_stats()
@@ -633,13 +834,12 @@ def phase_slice(torch, dev):
         dt = time.time() - t0
     finally:
         srv.close()
-    launches = dict(launches_now())
+    launches = nonzero(launch_counts())
     peak = torch.cuda.max_memory_allocated()
 
     forwards = srv.stats.batches * STEPS
-    attn_pf, w4_pf = expected_launches(params, cfg)
-    want = {"flash_attention_rope": attn_pf * forwards,
-            "w4a8_matmul": w4_pf * forwards}
+    per_fwd = nonzero(expected_launches(params, cfg, BATCH))
+    want = {k: n * forwards for k, n in per_fwd.items()}
     for o in outs:
         if tuple(o.shape) != (1, HW * HW, bb.in_channels) or not torch.isfinite(o).all():
             raise SystemExit(f"bad denoise output: {tuple(o.shape)}")
@@ -665,15 +865,14 @@ def phase_slice(torch, dev):
     fwd1 = forward_fn({k: torch.as_tensor(v) for k, v in reqs[0].items()})
     checks = {}
     with torch.no_grad():
-        before = dict(launches_now())
+        before = launch_counts()
         with shadowed_kernels(torch, checks):
             pred_k = fwd1().float()
-        mid = dict(launches_now())
+        mid = launch_counts()
         with plain_kernels():
             pred_p = fwd1().float()
-        after = dict(launches_now())
-    if mid != {k: before[k] + n for k, n in (("flash_attention_rope", attn_pf),
-                                             ("w4a8_matmul", w4_pf))} or after != mid:
+        after = launch_counts()
+    if mid != {k: n + per_fwd.get(k, 0) for k, n in before.items()} or after != mid:
         raise SystemExit(f"kernel/plain forwards launched {before} -> {mid} -> {after}")
     path_check = path_check_summary(checks)
     emit(dict(phase="path_check", **path_check))
@@ -691,8 +890,8 @@ def phase_slice(torch, dev):
     result = dict(phase="slice", requests=N_REQUESTS, batches=srv.stats.batches,
                   steps=STEPS, seconds=dt, images_per_s=N_REQUESTS / dt,
                   ms_per_denoise_step=dt / forwards * 1e3,
-                  attention_launches_per_forward=attn_pf,
-                  w4a8_launches_per_forward=w4_pf, launches=launches,
+                  attention_launches_per_forward=per_fwd["flash_attention_rope"],
+                  w4a8_launches_per_forward=per_fwd["w4a8_matmul"], launches=launches,
                   kernel_vs_plain_rel_l2=rel, peak_bytes=peak,
                   resident_bytes=resident, out_shape=list(outs[0].shape))
     emit(result)
@@ -701,26 +900,24 @@ def phase_slice(torch, dev):
     return params, launches
 
 
-def phase_train(torch, dev, params, seed):
-    """The full-width fine-tune step (bench.py run_full's configuration) on
-    the serving tree of phase 4: trainable = its float leaves (bf16), frozen
-    = the W4A8/W8A8 codes and scales."""
-    from unigen_tpu_torch import presets
+def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
+    """The full-width fine-tune step (bench.py run_full's configuration) of
+    ``cfg`` on its W4A8 serving tree: trainable = its float leaves (bf16),
+    frozen = the W4A8/W8A8 codes and scales. Reports lines ``phase``,
+    ``phase``_profile and ``phase``_grad_check; returns the launch counts of
+    the timed micro-steps."""
     from unigen_tpu_torch.config import TrainConfig
-    from unigen_tpu_torch.ops.cuda import flash_attention as fa
-    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.quant import split_trainable
     from unigen_tpu_torch.train import train_step as ts
     from unigen_tpu_torch.utils import tree_leaves, tree_map
 
-    cfg = presets.flux_full()
     bb = cfg.flux
     tcfg = TrainConfig(train_batch_size=BATCH, remat="full",
                        gradient_accumulation_steps=TRAIN_ACCUM)
     trainable, frozen = split_trainable(params["control"])
     n_train = sum(t.numel() for t in tree_leaves(trainable))
-    if n_train != FLUX_FULL_TRAINABLE:
-        raise SystemExit(f"trainable count {n_train} != {FLUX_FULL_TRAINABLE}")
+    if n_train != n_trainable:
+        raise SystemExit(f"{phase}: trainable count {n_train} != {n_trainable}")
     base_arg = {"base": params["base"], "control_frozen": frozen}
     g = torch.Generator(device=dev).manual_seed(seed)
     lat = 2 * HW                      # 64^2 latents for 512^2 images
@@ -737,12 +934,8 @@ def phase_train(torch, dev, params, seed):
     t0 = time.time()
     state, m = step(state, base_arg, batch, g)            # warm-up micro-step
     torch.cuda.synchronize()
-    print(f"# train: warm-up micro-step {time.time() - t0:.2f}s, "
+    print(f"# {phase}: warm-up micro-step {time.time() - t0:.2f}s, "
           f"loss {float(m['step_loss']):.5g}", flush=True)
-
-    def counts():
-        return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
-                BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches}
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, step_ms = [], []
@@ -751,11 +944,11 @@ def phase_train(torch, dev, params, seed):
         state, m = step(state, base_arg, batch, g)
         losses.append(float(m["step_loss"]))              # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = counts()
+    launches = nonzero(launch_counts())
     peak = torch.cuda.max_memory_allocated()
-    per_step = expected_train_launches(params, cfg)
+    per_step = nonzero(expected_train_launches(params, cfg, BATCH))
     want = {k: n * TRAIN_MICRO_STEPS for k, n in per_step.items()}
-    result = dict(phase="train", micro_steps=TRAIN_MICRO_STEPS, micro_batch=BATCH,
+    result = dict(phase=phase, micro_steps=TRAIN_MICRO_STEPS, micro_batch=BATCH,
                   accumulation=TRAIN_ACCUM, remat=tcfg.remat,
                   optimizer_updates=state.opt_state.count,
                   losses=losses, step_ms=step_ms,
@@ -766,13 +959,13 @@ def phase_train(torch, dev, params, seed):
                   grad_norm=float(m["grad_norm"]), lr=m["lr"])
     emit(result)
     if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"non-finite training loss: {losses}")
+        raise SystemExit(f"{phase}: non-finite training loss: {losses}")
     if launches != want:
-        raise SystemExit(f"train launches {launches} != expected {want}")
+        raise SystemExit(f"{phase} launches {launches} != expected {want}")
 
     # a profiled micro-step: device time by kernel group, idle share
     device_breakdown(torch, lambda: step(state, base_arg, batch, g),
-                     phase="train_profile", micro_batch=BATCH)
+                     phase=phase + "_profile", micro_batch=BATCH)
 
     # gradients of one micro-step with the kernels and with the plain versions
     draws = ts.draw(batch, g)
@@ -786,24 +979,60 @@ def phase_train(torch, dev, params, seed):
         return float(loss.detach()), [torch.zeros_like(t) if x is None else x
                              for t, x in zip(flat, out)]
     t0 = time.time()
-    loss_k, grad_k = grads()
+    checks = {}
+    with shadowed_backwards(torch, checks):
+        loss_k, grad_k = grads()
     with plain_kernels():
         loss_p, grad_p = grads()
+    path_check = {name: dict(calls=len(c), disagree=sum(not r["ok"] for r in c),
+                             max_err_over_max=max(r["max_err_over_max"] for r in c),
+                             max_rel_l2=max(r["rel_l2"] for r in c),
+                             path_do_max=[min(r["do_max"] for r in c),
+                                          max(r["do_max"] for r in c)],
+                             zero_do_calls=sum(r["do_max"] == 0 for r in c))
+                  for name, c in checks.items()}
+    want_calls = {"flash_attention_rope_bwd": per_step[BWD_NAMES[0]],
+                  "flash_attention_bwd": per_step.get(NOROPE_BWD_NAMES[0], 0)}
     num = sum((a.float() - b.float()).square().sum() for a, b in zip(grad_k, grad_p))
     den = sum(b.float().square().sum() for b in grad_p)
     rel = (num / den).sqrt().item()
     cos = [torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
                                                  dim=0).item()
            for a, b in zip(grad_k, grad_p) if b.float().norm() > 0]
-    emit(dict(phase="train_grad_check",
+    emit(dict(phase=phase + "_grad_check",
               depth=f"{bb.num_layers} double / {bb.num_single_layers} single (full)",
               loss_kernels=loss_k, loss_plain=loss_p, rel_l2=rel, leaves=len(grad_p),
               worst_leaf_cosine=min(cos), seconds=time.time() - t0,
+              backward_path_check=path_check,
               note="the MoE gather's backward is a scatter-add with atomics: "
                    "its bits change from run to run"))
     if not (rel <= 3e-2):
-        raise SystemExit(f"kernel gradients differ from plain: rel L2 {rel}")
+        raise SystemExit(f"{phase}: kernel gradients differ from plain: rel L2 {rel}")
+    if any(c["disagree"] for c in path_check.values()) or \
+            {n: c["calls"] for n, c in path_check.items()} != nonzero(want_calls):
+        raise SystemExit(f"{phase}: a backward kernel disagrees with its plain version "
+                         f"on the path, or calls != {want_calls}: {path_check}")
     return launches
+
+
+def phase_train_blocks(torch, dev, seed):
+    """Phase 5's step with the reference's shipped control values
+    (shipped_control(flux_full)): the W4A8 serving tree built from ``seed``
+    (the block experts stay bf16 and train, 12 FLUX single blocks), every
+    trainable control attention rope-free."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.io.from_jax import init_quantized_serving_params
+    from unigen_tpu_torch.utils import param_bytes
+    cfg = shipped_control(presets.flux_full())
+    t0 = time.time()
+    params = init_quantized_serving_params(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    print(f"# train_blocks: W4A8 tree with block experts built in "
+          f"{time.time() - t0:.1f}s, resident {param_bytes(params) / 2**30:.3f} GiB",
+          flush=True)
+    return phase_train(torch, dev, cfg, params, seed, FLUX_FULL_BLOCKS_TRAINABLE,
+                       phase="train_blocks")
 
 
 def phase_trainer(torch, dev, params, seed):
@@ -813,8 +1042,6 @@ def phase_trainer(torch, dev, params, seed):
     import numpy as np
     from unigen_tpu_torch import presets
     from unigen_tpu_torch.config import TrainConfig
-    from unigen_tpu_torch.ops.cuda import flash_attention as fa
-    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.quant import split_trainable
     from unigen_tpu_torch.train.loop import Trainer
     from unigen_tpu_torch.utils import tree_leaves
@@ -861,9 +1088,9 @@ def phase_trainer(torch, dev, params, seed):
         m = trainer.step(batch())
         losses.append(float(m["step_loss"]))              # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
-                BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches}
-    want = {k: n * TRAINER_STEPS for k, n in expected_train_launches(params, cfg).items()}
+    launches = nonzero(launch_counts())
+    want = {k: n * TRAINER_STEPS
+            for k, n in nonzero(expected_train_launches(params, cfg, BATCH)).items()}
     dtypes = sorted({str(t.dtype) for t in tree_leaves(trainer.state.control)})
     emit(dict(phase="trainer", steps=TRAINER_STEPS, micro_batch=BATCH,
               accumulation=TRAIN_ACCUM, trainable_dtypes=dtypes,
@@ -928,13 +1155,12 @@ def phase_flux_1024(torch, dev, params):
              pooled=mk(1, bb.pooled_projection_dim),
              cond_pooled=mk(1, bb.pooled_projection_dim))
     img_ids = prepare_latent_image_ids(hw, hw, device=dev)
-    attn_pf, w4_pf = expected_launches(params, cfg)
     return hires_phase(
         torch, "flux_1024", lambda: model.denoise(**x, num_steps=HIRES_STEPS),
         lambda: model(x["latents"], x["condition"], x["encoder"], x["pooled"],
                       x["cond_pooled"], torch.ones(1, dtype=model.dtype, device=dev),
                       img_ids, torch.zeros(SEQ_TXT, 3, device=dev), img_ids),
-        {"flash_attention_rope": attn_pf, "w4a8_matmul": w4_pf}, HIRES_STEPS,
+        expected_launches(params, cfg), HIRES_STEPS,
         resolution=HIRES, attention_lengths=[hw * hw + SEQ_TXT, 2 * hw * hw,
                                             2 * hw * hw + SEQ_TXT])
 
@@ -1094,6 +1320,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
               file=sys.stderr)
         return 2
+    from unigen_tpu_torch import presets
     from unigen_tpu_torch.ops.cuda import build
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
@@ -1111,7 +1338,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    logs = build.build_all([fa.KERNEL, fa.KERNEL_BWD, qm.KERNEL])
+    logs = build.build_all([fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
+                            fa.KERNEL_NOROPE_BWD, qm.KERNEL])
     print(f"# build: {time.time() - t0:.1f}s from {build.CSRC}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1125,7 +1353,8 @@ def main() -> int:
     params, serving = phase_slice(torch, dev)
 
     # 5. the training slice
-    launches = phase_train(torch, dev, params, args.seed)
+    launches = phase_train(torch, dev, presets.flux_full(), params, args.seed,
+                           FLUX_FULL_TRAINABLE)
 
     # 6. the Trainer on the same tree, fp32 activations
     phase_trainer(torch, dev, params, args.seed)
@@ -1135,6 +1364,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 7b. training with the shipped control values: rope-free control
+    # attention and block experts, on a tree of its own
+    blocks = phase_train_blocks(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
     # 8. the SD3 serving path, 9. the same at 1024^2
     model, sd3_launches = phase_sd3(torch, dev, args.seed)
     phase_sd3_1024(torch, model, args.seed)
@@ -1142,7 +1376,8 @@ def main() -> int:
     # 10. kernels line: the dominant main-path shape of each kernel; launches
     # from the main path that runs it (training for the FLUX kernels, with
     # the serving run's beside the forward kernels; SD3 serving for the
-    # rope-free one)
+    # rope-free forward, with train_blocks' beside it; train_blocks for the
+    # rope-free backward)
     pallas = "unigen_tpu/ops/pallas/"
     sources = {
         "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128",
@@ -1153,8 +1388,15 @@ def main() -> int:
         BWD_NAMES[1]: ("flash_attention_rope_bwd.cu", "flash_attention.py:958",
                        pallas + "flash_attention.py:670"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:109",
-                            pallas + "flash_attention.py:399")}
-    main_path = dict(launches, flash_attention=sd3_launches["flash_attention"])
+                            pallas + "flash_attention.py:399"),
+        NOROPE_BWD_NAMES[0]: ("flash_attention_bwd.cu", "flash_attention.py:882",
+                              [pallas + "flash_attention.py:646",
+                               pallas + "flash_attention.py:815"]),
+        NOROPE_BWD_NAMES[1]: ("flash_attention_bwd.cu", "flash_attention.py:930",
+                              [pallas + "flash_attention.py:646",
+                               pallas + "flash_attention.py:815"])}
+    main_path = dict(launches, flash_attention=sd3_launches["flash_attention"],
+                     **{n: blocks[n] for n in NOROPE_BWD_NAMES})
     kernels = []
     for name, (src, replaces, also) in sources.items():
         rep = rows[name][1] if name == "w4a8_matmul" else rows[name][0]
@@ -1168,6 +1410,8 @@ def main() -> int:
             entry["also_replaces"] = also
         if name in serving:
             entry["serving_launches"] = serving[name]
+        if name == "flash_attention":
+            entry["train_blocks_launches"] = blocks[name]
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

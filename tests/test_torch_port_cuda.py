@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
 NVIDIA card (the RoPE attention forward and its backward, the rope-free
-attention forward at head dim 64 and 128, and the W4A8 matmul). Marked
-``cuda``; without a card they skip. This file imports no JAX, so it also
-runs where JAX is absent:
+attention forward and its backward at head dim 64 and 128, and the W4A8
+matmul). Marked ``cuda``; without a card they skip. This file imports no
+JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 """
@@ -167,15 +167,62 @@ def test_long_kv_kernels_match_plain_on_card(card):
 
 
 @pytest.mark.cuda
-def test_rope_free_sdpa_raises_under_autograd_on_card(card):
-    """The rope-free backward is not ported: recording a gradient on the
-    card raises (and launches nothing) instead of running the plain math."""
+@pytest.mark.parametrize("b,h,sq,skv,d,dtype", [
+    (1, 3, 171, 171, 128, torch.bfloat16), (1, 3, 171, 171, 64, torch.float32),
+    (1, 3, 200, 300, 64, torch.bfloat16), (1, 3, 200, 300, 128, torch.bfloat16),
+    (1, 3, 200, 300, 128, torch.float32), (1, 2, 1, 1, 64, torch.bfloat16),
+    (1, 2, 1, 1, 128, torch.float32), (2, 4, 1536, 1536, 128, torch.bfloat16),
+    (1, 4, 1357, 1357, 64, torch.bfloat16)])
+def test_rope_free_backward_kernels_match_plain_on_card(card, b, h, sq, skv, d, dtype):
+    """Rows 5p/6p: dq, dk, dv within 2e-2 of each one's largest |value| and
+    1e-2 relative L2 of the fp32 plain backward at ragged lengths (a FLUX
+    block expert's 171, 200/300, 1x1), FLUX's 1536 and SD3's 1357, both
+    head dims, bf16 and fp32 inputs; each kernel launches once; the
+    forward's lse is the row log-sum-exp of its own bf16-rounded logits.
+    With one key P = 1 and dS = 0, so dq and dk are rounding noise on both
+    sides (the kernel rounds fp32 dO to bf16 for dP, the D pass does not):
+    they must be within 1e-2 of dv's largest |value| instead."""
+    g = torch.Generator(device=card).manual_seed(6)
+    q, k, v, do = (torch.randn(b, h, s, d, device=card, generator=g).to(dtype)
+                   for s in (sq, skv, skv, sq))
+    out, lse = t_fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = (t_fa.norope_dq_launches, t_fa.norope_dkv_launches)
+    got = t_fa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (t_fa.norope_dq_launches, t_fa.norope_dkv_launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    want = t_fa.flash_attention_bwd_ref(q, k, v, out, do)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert x.dtype == dtype and x.shape == y.shape
+        if skv == 1 and i < 2:
+            assert x.float().abs().max().item() <= 1e-2 * want[2].float().abs().max().item()
+            continue
+        assert (x.float() - y.float()).abs().max().item() <= 2e-2 * y.float().abs().max().item()
+        assert _rel_l2(x, y) <= 1e-2
+    logits = (q.bfloat16().float() @ k.bfloat16().float().transpose(-1, -2)) / d ** 0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rope_free_autograd_runs_kernels_on_card(card):
+    """torch.autograd through the rope-free sdpa launches the forward and
+    both backward kernels once each (no plain math on the card), and agrees
+    with autograd of the plain forward; without a gradient to record it is
+    the forward alone."""
     from unigen_tpu_torch.ops.attention import sdpa
-    q = torch.randn(1, 2, 64, 64, device=card, requires_grad=True)
-    before = t_fa.norope_launches
-    with pytest.raises(NotImplementedError, match="5p and 6p"):
-        sdpa(q, q, q)
-    assert t_fa.norope_launches == before
+    g = torch.Generator(device=card).manual_seed(7)
+    leaves = [torch.randn(1, 2, s, 64, device=card, generator=g).bfloat16()
+              .requires_grad_() for s in (96, 171, 171)]
+    before = (t_fa.norope_launches, t_fa.norope_dq_launches, t_fa.norope_dkv_launches)
+    out = sdpa(*leaves)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    assert (t_fa.norope_launches, t_fa.norope_dq_launches,
+            t_fa.norope_dkv_launches) == tuple(n + 1 for n in before)
+    ref = t_fa.flash_attention_ref(*leaves)
+    want = torch.autograd.grad(ref.float().square().sum(), leaves)
+    for x, y in zip(grads, want):
+        assert _rel_l2(x, y) <= 2e-2
     with torch.no_grad():
-        assert sdpa(q, q, q).shape == q.shape
-    assert t_fa.norope_launches == before + 1
+        assert sdpa(*leaves).shape == leaves[0].shape
+    assert t_fa.norope_launches == before[0] + 2
+    assert t_fa.norope_dq_launches == before[1] + 1

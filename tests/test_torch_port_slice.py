@@ -4,10 +4,15 @@ zero-init add linears filled with random values first, so the control
 branch shapes the output) and ``unigen_flux_forward`` and a 2-step Euler
 denoise run on both sides with the same numpy inputs.
 
+The forward also runs with the reference's shipped control values
+(``use_rope = use_modulate = False``: rope-free control blocks and weave,
+each MoE expert a pair of FLUX single blocks).
+
 Tolerances: fp32 at the repo's golden 2e-3; bf16 within 2e-2 relative L2
 (catches dtype-promotion faults); W4A8 within 5e-3 relative L2 (a 1e-6
 input difference can flip one int8 activation code)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -33,17 +38,23 @@ HW, T = 4, 6                     # 4x4 packed image tokens, 6 text tokens
 S = HW * HW
 
 
-def _configs(conditions=("canny",)):
-    """The same tiny UniGen config in the JAX package and in the port."""
+def _configs(conditions=("canny",), blocks=False):
+    """The same tiny UniGen config in the JAX package and in the port;
+    ``blocks``: the reference's control values, rope-free with block
+    experts."""
     jc = jcfg.UniGenConfig(family="flux", flux=FLUX, condition_types=conditions)
-    return jc, t_presets.tiny(conditions)
+    tc = t_presets.tiny(conditions)
+    if blocks:
+        jc, tc = (dataclasses.replace(c, control=dataclasses.replace(
+            c.control, use_rope=False, use_modulate=False)) for c in (jc, tc))
+    return jc, tc
 
 
 @functools.lru_cache(maxsize=None)
-def _fp32_params(conditions):
-    """A JAX fp32 tree (built once per condition set) whose zero-init add
-    linears carry random values."""
-    p = init_unigen_flux_params(jax.random.PRNGKey(0), _configs(conditions)[0])
+def _fp32_params(conditions, blocks=False):
+    """A JAX fp32 tree (built once per condition set and control kind) whose
+    zero-init add linears carry random values."""
+    p = init_unigen_flux_params(jax.random.PRNGKey(0), _configs(conditions, blocks)[0])
     rng = np.random.default_rng(100)
     for k in ("add_double", "add_single"):
         w = p["control"][k]["w"]
@@ -53,8 +64,8 @@ def _fp32_params(conditions):
 
 
 def _params(variant, conditions):
-    p = _fp32_params(conditions)
-    if variant == "bf16":      # the bf16 serving tree keeps the router fp32
+    p = _fp32_params(conditions, variant.startswith("blocks"))
+    if variant.endswith("bf16"):   # the bf16 serving tree keeps the router fp32
         return jax.tree_util.tree_map_with_path(
             lambda path, x: x if "gate" in jax.tree_util.keystr(path)
             else x.astype(jnp.bfloat16), p)
@@ -93,16 +104,19 @@ def _both_forwards(jc, tc, jp, batch, dtype):
     return (jpred, jl, jo), (tpred, tl, to)
 
 
-@pytest.mark.parametrize("variant", ["fp32", "bf16", "w4a8", "multi_condition"])
+@pytest.mark.parametrize("variant", ["fp32", "bf16", "w4a8", "multi_condition",
+                                     "blocks_fp32", "blocks_bf16"])
 def test_unigen_flux_forward(variant):
     rng = np.random.default_rng(3)
     conditions = ("canny", "depth") if variant == "multi_condition" else ("canny",)
-    jc, tc = _configs(conditions)
-    dtype = jnp.bfloat16 if variant == "bf16" else jnp.float32
+    jc, tc = _configs(conditions, variant.startswith("blocks"))
+    dtype = jnp.bfloat16 if variant.endswith("bf16") else jnp.float32
     jp = _params(variant, conditions)
+    if variant.startswith("blocks"):
+        assert "hid_block" in jp["control"]["moe"]["experts"]
     batch = _batch(rng, k=2 if variant == "multi_condition" else None)
     (jpred, jl, jo), (tpred, tl, to) = _both_forwards(jc, tc, jp, batch, dtype)
-    if variant == "bf16":
+    if variant.endswith("bf16"):
         assert rel_l2(tpred, jpred) <= 2e-2
     elif variant == "w4a8":
         assert rel_l2(tpred, jpred) <= 5e-3

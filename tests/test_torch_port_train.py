@@ -1,9 +1,10 @@
 """The training pieces of the port against the JAX package on the CPU: the
-attention backward's plain version against both Pallas backward schedules
-(interpret mode), the straight-through quantized matmuls under each backward
-policy, split_trainable/merge_split, the learning-rate schedules, the
-clip + AdamW + MultiSteps update against optax, and the training draws of
-the scheduler. Inputs are made with numpy from fixed seeds."""
+attention backwards' plain versions (RoPE and rope-free) against both Pallas
+backward schedules and the streaming entry's VJP (interpret mode), the
+straight-through quantized matmuls under each backward policy,
+split_trainable/merge_split, the learning-rate schedules, the clip + AdamW +
+MultiSteps update against optax, and the training draws of the scheduler.
+Inputs are made with numpy from fixed seeds."""
 
 import importlib
 
@@ -80,6 +81,41 @@ def test_attention_backward_plain_matches_pallas(flash_mod, monkeypatch,
         np.testing.assert_allclose(b.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("entry,schedule,d,sq,skv", [
+    ("flash_attention", "full_kv", 64, 150, 260),
+    ("flash_attention", "full_kv", 128, 171, 171),
+    ("flash_attention", "kv_blocked", 64, 200, 300),
+    ("flash_attention", "kv_blocked", 128, 200, 300),
+    ("flash_attention_streaming", "kv_blocked", 64, 150, 260),
+    ("flash_attention_streaming", "kv_blocked", 128, 200, 300)])
+def test_rope_free_backward_plain_matches_pallas(flash_mod, monkeypatch, entry,
+                                                 schedule, d, sq, skv):
+    """Rows 5p and 6p: the plain rope-free backward, and autograd through the
+    port's Function on CPU tensors, against the JAX VJP of flash_attention
+    (the full-KV Pallas backward, or the kv-blocked one forced with small
+    blocks) and of flash_attention_streaming (always kv-blocked), at both
+    head dims and ragged lengths (171: a FLUX block expert's capacity).
+    fp32, the JAX kernel tests' rtol 2e-4 / atol 2e-5."""
+    if schedule == "kv_blocked":
+        monkeypatch.setattr(flash_mod, "_bwd_supported", lambda *a: False)
+        monkeypatch.setattr(flash_mod, "BQ_BWD_BLK", 128)
+        monkeypatch.setattr(flash_mod, "BK_BWD_BLK", 128)
+    rng = np.random.default_rng(13)
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (
+        pair(normal(rng, 1, 2, s, d)) for s in (sq, skv, skv, sq))
+    assert flash_mod._bwd_supported(jq, jk, jv) == (schedule == "full_kv")
+    fn = getattr(flash_mod, entry)
+    want = jax.grad(lambda *a: jnp.sum(fn(*a) * jg), (0, 1, 2))(jq, jk, jv)
+    got = t_fa.flash_attention_bwd_ref(tq, tk, tv, t_fa.flash_attention_ref(tq, tk, tv), tg)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out = t_fa.flash_attention(*leaves)
+    assert isinstance(out.grad_fn, t_fa._FlashAttention._backward_cls)
+    via_autograd = torch.autograd.grad(out, leaves, tg)
+    for a, b, w in zip(got, via_autograd, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+        np.testing.assert_allclose(b.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+
+
 def test_attention_backward_plain_is_autograd_of_plain_forward():
     """The plain backward (fp32 math, D from the saved output) equals
     torch.autograd of the plain forward, identity K rows included."""
@@ -92,6 +128,12 @@ def test_attention_backward_plain_is_autograd_of_plain_forward():
     want = torch.autograd.grad(out, (q, k, v), g)
     got = t_fa.flash_attention_rope_bwd_ref(q.detach(), k.detach(), v.detach(),
                                             out.detach(), g, *tt)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    out = t_fa.flash_attention_ref(q, k, v)
+    want = torch.autograd.grad(out, (q, k, v), g)
+    got = t_fa.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
@@ -243,24 +285,40 @@ def test_timestep_density_draws_from_the_generator(scheme):
     assert_close(u, want, 1e-6)
 
 
-def test_flux_full_trainable_count_matches_jax():
+@pytest.mark.parametrize("control", ["rope", "blocks"])
+def test_flux_full_trainable_count_matches_jax(control):
     """The full-width fine-tune trains the float leaves of the W4A8 control
     tree: the port's split_trainable of its serving tree counts as many
     elements as the JAX package's on eval_shape, the number chip_smoke.py
-    holds the card run to."""
+    holds the card run to. With the shipped control values (block experts:
+    12 FLUX single blocks, left float by the serving policy) the whole
+    serving tree also has the JAX tree's paths, shapes and dtypes."""
     import chip_smoke
     from unigen_tpu import presets as j_presets
     from unigen_tpu.models.unigen_flux import init_unigen_flux_params as j_init
     from unigen_tpu_torch import presets as t_presets
     from unigen_tpu_torch.io.from_jax import init_quantized_serving_params
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    jcfg, tcfg = j_presets.flux_full(), t_presets.flux_full()
+    if control == "blocks":
+        jcfg, tcfg = chip_smoke.shipped_control(jcfg), chip_smoke.shipped_control(tcfg)
     shapes = jax.eval_shape(lambda k: j_quant.quantize_unigen_serving(
-        j_init(k, j_presets.flux_full(), dtype=jnp.bfloat16)), jax.random.PRNGKey(0))
+        j_init(k, jcfg, dtype=jnp.bfloat16)), jax.random.PRNGKey(0))
     want = sum(int(x.size) for x in jax.tree.leaves(
         j_quant.split_trainable(shapes["control"])[0]))
-    tree = init_quantized_serving_params(t_presets.flux_full(), device="meta")
+    tree = init_quantized_serving_params(tcfg, device="meta")
     got = sum(x.numel() for x in tree_leaves(
         t_quant.split_trainable(tree["control"])[0]))
-    assert got == want == chip_smoke.FLUX_FULL_TRAINABLE
+    assert got == want == {"rope": chip_smoke.FLUX_FULL_TRAINABLE,
+                           "blocks": chip_smoke.FLUX_FULL_BLOCKS_TRAINABLE}[control]
+    if control == "blocks":
+        layout = {jax.tree_util.keystr(p, simple=True, separator="."):
+                  (tuple(x.shape), str(x.dtype))
+                  for p, x in jax.tree_util.tree_leaves_with_path(shapes)}
+        assert layout == {".".join(p): (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                          for p, x in tree_leaves_with_path(tree)}
+        assert tree["control"]["moe"]["experts"]["hid_block"]["proj_out"]["w"].dtype \
+            == torch.bfloat16
 
 
 def test_remat_full_keeps_values_and_gradients():

@@ -4,7 +4,9 @@ micro-steps each, started from a JAX state past step 0 and fed the JAX
 step's own noise and timestep draws; the W4A8 split fine-tune in bf16 (the
 bench's run_full) and with the Trainer's fp32 upcast; ``Trainer`` with stub
 encoders; and the expected kernel-call counts of a remat training step that
-``chip_smoke.py`` checks on the card."""
+``chip_smoke.py`` checks on the card. The two-update run and the call count
+also run with the reference's shipped control values (rope-free control
+attention, block experts: ``chip_smoke.shipped_control``)."""
 
 import functools
 
@@ -33,10 +35,12 @@ from unigen_tpu_torch.utils import tree_leaves, tree_map
 B, C, LAT, T = 2, 4, 8, 6            # 8x8 latents -> 16 packed tokens
 
 
-def _configs():
+def _configs(control="rope"):
     """One tiny UniGen config in both packages: per-sample MoE whose training
     capacity (4 slots for 16 tokens over 6 experts) is above the eval one
-    (3), so ``training`` decides which tokens drop."""
+    (3), so ``training`` decides which tokens drop. ``control="blocks"``
+    takes the reference's shipped control values."""
+    import chip_smoke
     moe = dict(capacity_factor=1.5, eval_capacity_factor=1.0, min_capacity=1,
                batch_mode="per_sample")
     jc = j_config.UniGenConfig(
@@ -45,18 +49,29 @@ def _configs():
     tc = t_config.UniGenConfig(
         family="flux", flux=t_config.tiny_flux_config(),
         control=t_config.ControlConfig(moe=t_config.MoEConfig(**moe)))
+    if control == "blocks":
+        return chip_smoke.shipped_control(jc), chip_smoke.shipped_control(tc)
     return jc, tc
 
 
-def _jax_params(jc, dtype=jnp.float32):
-    """A JAX tree whose zero-init add linears carry random values; a bf16
-    tree keeps the router gate fp32, as the package's bf16 init does."""
-    p = jax.jit(j_init, static_argnums=(1,))(jax.random.PRNGKey(0), jc)
+@functools.lru_cache(maxsize=None)
+def _jax_fp32_params(jc):
+    """The JAX fp32 tree of ``jc`` whose zero-init add linears carry random
+    values, built once per config (eagerly: the same values as under jit,
+    in a third of the time at this size)."""
+    p = j_init(jax.random.PRNGKey(0), jc)
     rng = np.random.default_rng(100)
     for k in ("add_double", "add_single"):
         w = p["control"][k]["w"]
         p["control"][k]["w"] = jnp.asarray(
             rng.uniform(-0.2, 0.2, size=w.shape).astype(np.float32))
+    return p
+
+
+def _jax_params(jc, dtype=jnp.float32):
+    """A fresh tree of ``_jax_fp32_params(jc)`` in ``dtype``; a bf16 tree
+    keeps the router gate fp32, as the package's bf16 init does."""
+    p = _jax_fp32_params(jc)
     return jax.tree_util.tree_map_with_path(
         lambda path, x: x if "gate" in jax.tree_util.keystr(path) else x.astype(dtype), p)
 
@@ -82,15 +97,17 @@ def _jax_draws(rng_key, latents, scheme):
         torch.from_numpy(np.array(u)))
 
 
-def test_train_step_matches_jax_over_two_updates():
+@pytest.mark.parametrize("control", ["rope", "blocks"])
+def test_train_step_matches_jax_over_two_updates(control):
     """fp32, remat "full", accumulation 2, the cosmap weighting: three JAX
     micro-steps, then the JAX state carried across (adam count 1, one
     gradient accumulated) and four more micro-steps on both sides. Loss and
     grad norm within the repo's 2e-3; the parameter updates within 1e-2
     relative L2 (Adam's normalised update turns fp32 noise in near-zero
     gradients into sign flips of single elements); the parameters within
-    2e-3 (lr 1e-4 bounds those flips)."""
-    jc, tc = _configs()
+    2e-3 (lr 1e-4 bounds those flips). With block experts the rope-free
+    attention backward carries every control gradient."""
+    jc, tc = _configs(control)
     kw = dict(learning_rate=1e-4, lr_scheduler="constant", gradient_accumulation_steps=2,
               remat="full", weighting_scheme="cosmap", max_grad_norm=1.0)
     jt, tt = j_config.TrainConfig(**kw), t_config.TrainConfig(**kw)
@@ -132,11 +149,11 @@ def test_train_step_matches_jax_over_two_updates():
 
 
 @functools.lru_cache(maxsize=None)
-def _w4a8_params(dtype_name):
+def _w4a8_params(dtype_name, control="rope"):
     """The serving policy at tiny width (min_dim 16 so the tiny linears take
-    it): W4 base and control block stacks, W8 for the other control pieces;
-    built once per dtype."""
-    jc, _ = _configs()
+    it): W4 base and control block stacks, W8 for the other control pieces,
+    the experts left float; built once per dtype and control kind."""
+    jc, _ = _configs(control)
     jp = _jax_params(jc, jnp.dtype(dtype_name))
     q = jax.jit(functools.partial(j_quant.quantize_tree, min_dim=16),
                 static_argnames=("bits",))
@@ -316,13 +333,15 @@ def test_unported_training_options_raise():
                        device="cpu")
 
 
-def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch):
-    """One W4A8 split micro-step with remat "full" calls the attention
-    forward, the attention backward and the W4A8 matmul exactly as often as
-    chip_smoke.py's expected_train_launches says (the recomputed forwards
-    of every remat body included), so the card's launch check is exact."""
+@pytest.mark.parametrize("control", ["rope", "blocks"])
+def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
+    """One W4A8 split micro-step with remat "full" calls each attention
+    forward (RoPE and rope-free), each attention backward and the W4A8
+    matmul exactly as often as chip_smoke.py's expected_train_launches says
+    (the recomputed forwards of every remat body included), so the card's
+    launch check is exact."""
     import chip_smoke
-    calls = {"fwd": 0, "bwd": 0, "w4a8": 0}
+    calls = {"fwd": 0, "bwd": 0, "w4a8": 0, "norope_fwd": 0, "norope_bwd": 0}
 
     def counted(key, fn):
         def wrapper(*a, **kw):
@@ -333,9 +352,13 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch):
                         counted("fwd", t_fa.flash_attention_rope_fwd))
     monkeypatch.setattr(t_fa, "flash_attention_rope_bwd",
                         counted("bwd", t_fa.flash_attention_rope_bwd))
+    monkeypatch.setattr(t_fa, "flash_attention_fwd",
+                        counted("norope_fwd", t_fa.flash_attention_fwd))
+    monkeypatch.setattr(t_fa, "flash_attention_bwd",
+                        counted("norope_bwd", t_fa.flash_attention_bwd))
     monkeypatch.setattr(t_qm, "w4a8_matmul", counted("w4a8", t_qm.w4a8_matmul))
-    jc, tc = _configs()
-    params = to_torch_tree(_w4a8_params("float32"))
+    jc, tc = _configs(control)
+    params = to_torch_tree(_w4a8_params("float32", control))
     trainable, frozen = t_quant.split_trainable(params["control"])
     tt = t_config.TrainConfig(remat="full", gradient_accumulation_steps=2)
     step = t_ts.make_train_step(tc, tt)
@@ -343,8 +366,12 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch):
     step(t_ts.init_train_state(trainable, tt),
          {"base": params["base"], "control_frozen": frozen}, tbatch,
          torch.Generator().manual_seed(0))
-    want = chip_smoke.expected_train_launches(params, tc)
+    want = chip_smoke.expected_train_launches(params, tc, B)
     assert calls == {"fwd": want["flash_attention_rope"],
                      "bwd": want["flash_attention_rope_bwd_dq"],
-                     "w4a8": want["w4a8_matmul"]}
+                     "w4a8": want["w4a8_matmul"],
+                     "norope_fwd": want["flash_attention"],
+                     "norope_bwd": want["flash_attention_bwd_dq"]}
     assert want["flash_attention_rope_bwd_dq"] == want["flash_attention_rope_bwd_dkv"]
+    assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
+    assert (want["flash_attention"] > 0) == (control == "blocks")

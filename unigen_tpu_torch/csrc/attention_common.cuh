@@ -1,9 +1,10 @@
 // Pieces shared by the attention kernels (the fused RoPE forward and
-// backward, and the rope-free forward): the bf16 tensor-core product, bf16
-// packing, loads and stores of bf16 or fp32 rows, and the staging of a tile
-// of rows into shared memory, rotated in fp32 and rounded to bf16 where
-// tables are given. The head dim is 128 for the RoPE kernels (attn::D);
-// stage_rows also takes 64 (the rope-free kernel's SD3 heads).
+// backward, and the rope-free forward and backward): the bf16 tensor-core
+// product, bf16 packing, loads and stores of bf16 or fp32 rows, and the
+// staging of a tile of rows into shared memory, rotated in fp32 and rounded
+// to bf16 where tables are given. The head dim is 128 for the RoPE kernels
+// (attn::D); stage_rows and the fragment loads also take 64 (the rope-free
+// kernels' SD3 heads) through the shared row stride ld_of<HD>().
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
@@ -51,38 +52,41 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
 }
 
 // A fragment of rows [r0, r0+16) and k columns [k0, k0+16) of a row-major
-// shared tile.
+// shared tile of row stride LDS.
+template <int LDS = LD>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4],
                                        const __nv_bfloat16* tile, int r0,
                                        int k0) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const __nv_bfloat16* base = tile + (r0 + g) * LD + k0 + t * 2;
+  const __nv_bfloat16* base = tile + (r0 + g) * LDS + k0 + t * 2;
   a[0] = *reinterpret_cast<const uint32_t*>(base);
-  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LD);
+  a[1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
   a[2] = *reinterpret_cast<const uint32_t*>(base + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
+  a[3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 8);
 }
 
 // B fragment where k runs along a shared tile's row (k = column index):
 // B[k][n] = tile[n0 + n][k0 + k], i.e. the product with tile^T.
+template <int LDS = LD>
 __device__ __forceinline__ void load_b_rows(uint32_t& b0, uint32_t& b1,
                                             const __nv_bfloat16* tile, int n0,
                                             int k0) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const __nv_bfloat16* base = tile + (n0 + g) * LD + k0 + t * 2;
+  const __nv_bfloat16* base = tile + (n0 + g) * LDS + k0 + t * 2;
   b0 = *reinterpret_cast<const uint32_t*>(base);
   b1 = *reinterpret_cast<const uint32_t*>(base + 8);
 }
 
 // B fragment where k runs down a shared tile's rows (k = row index):
 // B[k][n] = tile[k0 + k][n0 + n], i.e. the product with the tile itself.
+template <int LDS = LD>
 __device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
                                             const __nv_bfloat16* tile, int k0,
                                             int n0) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const __nv_bfloat16* p = tile + (k0 + t * 2) * LD + n0 + g;
-  b0 = pack_raw(p[0], p[LD]);
-  b1 = pack_raw(p[8 * LD], p[9 * LD]);
+  const __nv_bfloat16* p = tile + (k0 + t * 2) * LDS + n0 + g;
+  b0 = pack_raw(p[0], p[LDS]);
+  b1 = pack_raw(p[8 * LDS], p[9 * LDS]);
 }
 
 // Eight consecutive elements of a bf16 or fp32 row, as floats.

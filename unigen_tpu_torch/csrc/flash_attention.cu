@@ -31,6 +31,10 @@
 // their logits masked to -inf before the running max; a tile wholly past Skv
 // is never visited (the loop ends at Skv); Q rows past Sq are staged as
 // zeros and never stored.
+// Under autograd the kernel also writes the fp32 row log-sum-exp
+// lse = ln(sum_j exp(s_j / sqrt(D))) [BH, Sq] from its running max and sum,
+// the counterpart of the Pallas `_lse_kernel` (:815): the backward
+// (flash_attention_bwd.cu) recomputes P = exp(s / sqrt(D) - lse) from it.
 // Not yet: cp.async/TMA double buffering, wgmma, warp specialisation.
 
 #include <cuda_bf16.h>
@@ -54,8 +58,8 @@ constexpr int THREADS = 128;
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             float scale_log2) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Skv, float scale_log2) {
   constexpr int LD = attn::ld_of<HD>();
   // Ks doubles as the Q staging buffer before the first K tile.
   __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LD];
@@ -169,6 +173,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + warp * 16 + g + h * 8;
     if (row >= Sq) continue;
     const float inv = 1.f / l_run[h];
+    if (lse != nullptr && tig == 0)      // logits were scaled by log2(e)
+      lse[(size_t)bh * Sq + row] = (m_run[h] + log2f(l_run[h])) * 0.69314718f;
     T* orow = out + ((size_t)bh * Sq + row) * HD;
 #pragma unroll
     for (int nd = 0; nd < HD / 8; ++nd)
@@ -178,29 +184,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int Sq, int Skv, float scale_log2, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int BH, int Sq, int Skv, float scale_log2, void* stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, BH);
   flash_kernel<T, HD><<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, scale_log2);
+      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
+      Sq, Skv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // fp32 != 0: q, k, v and out are fp32, else bf16. D must be 64 or 128
-// (cudaErrorInvalidValue otherwise).
+// (cudaErrorInvalidValue otherwise). lse [BH, Sq] f32, or nullptr when no
+// gradient is recorded.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int BH, int Sq, int Skv, int D,
-                               float scale_log2, int fp32, void* stream) {
+                               void* out, void* lse, int BH, int Sq, int Skv,
+                               int D, float scale_log2, int fp32, void* stream) {
   if (D == 64)
-    return fp32 ? launch<float, 64>(q, k, v, out, BH, Sq, Skv, scale_log2, stream)
-                : launch<__nv_bfloat16, 64>(q, k, v, out, BH, Sq, Skv,
+    return fp32 ? launch<float, 64>(q, k, v, out, lse, BH, Sq, Skv, scale_log2,
+                                    stream)
+                : launch<__nv_bfloat16, 64>(q, k, v, out, lse, BH, Sq, Skv,
                                             scale_log2, stream);
   if (D == 128)
-    return fp32 ? launch<float, 128>(q, k, v, out, BH, Sq, Skv, scale_log2, stream)
-                : launch<__nv_bfloat16, 128>(q, k, v, out, BH, Sq, Skv,
+    return fp32 ? launch<float, 128>(q, k, v, out, lse, BH, Sq, Skv, scale_log2,
+                                     stream)
+                : launch<__nv_bfloat16, 128>(q, k, v, out, lse, BH, Sq, Skv,
                                              scale_log2, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,12 @@ routing for serving and training).
 
 A GShard top-1 router on (hidden + condition) routes every stream with one
 set of slots; each expert is either a pair of modulated linears computed as
-batched matmuls over the expert axis (FLUX, ``use_rope or use_modulate``),
-or a pair of single transformer blocks with token-wise temb (SD3's shipped
-config): the JAX ``vmap`` over the expert axis becomes a loop over the
-experts, one block call per expert and stream. The gather combine weights
+batched matmuls over the expert axis (``use_rope or use_modulate``), or a
+pair of single transformer blocks with token-wise temb (the reference's
+shipped control config, ``use_rope = use_modulate = False``: FLUX single
+blocks or SD3 ones, by the caller's ``block_apply``): the JAX ``vmap`` over
+the expert axis becomes a loop over the experts, one block call per expert
+and stream, each on [1, capacity] tokens. The gather combine weights
 by the gate. ``batch_mode="per_sample"`` routes each sample with its own
 capacity (the JAX ``vmap`` over samples becomes a loop over the batch);
 ``"global"`` routes all B*S tokens with one capacity ceil(B*S/E), so a

@@ -12,8 +12,12 @@ plain serving forward), and ``UniGenFlux``, the module at the port's entry.
   38x [base single -> control single (idx i//2) -> overall_add | single_add]
   AdaLN-continuous out -> proj
 
-Control blocks run sample-first with rope; every control block reads the
-fixed control context; multi-condition inputs carry a leading condition
+Control blocks run sample-first, with rope under ``use_rope`` and without
+it otherwise (the shared-expert weave follows the same flag); with
+``use_rope = use_modulate = False`` (the reference's shipped unigen.yaml)
+each MoE expert is a pair of FLUX single blocks with token-wise temb,
+else a pair of modulated linears. Every control block reads the fixed
+control context; multi-condition inputs carry a leading condition
 axis, and their expert outputs and condition tembs are summed.
 ``remat`` checkpoints each double and single body (base block + control
 block + gated add) as the JAX scan bodies are; ``training`` routes the MoE
@@ -56,8 +60,6 @@ def control_block_index_table(n_base: int, n_control: int) -> list:
 def _check_supported(cfg: UniGenConfig):
     if cfg.control.use_consis_module:
         raise NotImplementedError("the consis module waits for a later slice")
-    if not (cfg.control.use_rope or cfg.control.use_modulate):
-        raise NotImplementedError("block experts wait for a later slice")
 
 
 def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
@@ -72,6 +74,7 @@ def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
     n_cn = bb.num_layers // cc.single_control_dev
     n_cn_single = bb.num_single_layers // cc.single_control_dev
     kw = dict(gen=gen, device=device, dtype=dtype)
+    modulated = cc.use_modulate or cc.use_rope
     p: Dict[str, Any] = {
         "x_embedder": init_linear(bb.in_channels, d, **kw),
         "time_text_embed": init_combined_time_text(
@@ -85,7 +88,10 @@ def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
             n_cn, lambda: init_linear(d, d, zero=True, **kw)),
         "moe": moe_lib.init_moe_params(
             d, bb.pooled_projection_dim,
-            cc.moe.num_experts(cfg.condition_nums), **kw),
+            cc.moe.num_experts(cfg.condition_nums), modulated=modulated,
+            expert_block_init=(None if modulated else
+                               lambda: init_flux_single_block(d, heads, hd, **kw)),
+            **kw),
     }
     if cc.use_single_trans_blocks:
         p["single_blocks"] = init_stacked(
@@ -135,7 +141,8 @@ def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
     streams = {"temb": control_temb, "condition_temb": cond_temb,
                "pooled": pooled, "condition_pooled": condition_pooled}
     out = moe_lib.moe_apply(ctrl["moe"], cc, cc.moe.num_experts(cfg.condition_nums),
-                            h0, cond_h, streams, training=training)
+                            h0, cond_h, streams, block_apply=flux_single_block,
+                            heads=heads, training=training)
     exp_h, exp_c = out.expert_hidden, out.expert_condition
 
     if "shared_expert" in ctrl:

@@ -3,12 +3,11 @@
 Port of ``unigen_tpu/ops/attention.py``. ``sdpa_ref`` is the plain version
 of ``sdpa_xla`` (fp32 logits and softmax, probabilities cast to the value
 dtype for the second product). ``sdpa`` with rope tables runs the fused
-RoPE attention, a ``torch.autograd.Function`` whose forward and backward are
-the CUDA kernels on the card and the plain versions on the CPU; without
-rope it runs the rope-free attention, the CUDA kernel on the card (forward
-only: it raises where a gradient would be recorded) and the plain version
-on the CPU. The TPU's split between full-KV and streaming kernels at 2560
-keys has no counterpart: the card's kernels take any length.
+RoPE attention, without rope the rope-free attention: each a
+``torch.autograd.Function`` whose forward and backward are the CUDA kernels
+on the card and the plain versions on the CPU. The TPU's split between
+full-KV and streaming kernels at 2560 keys has no counterpart: the card's
+kernels take any length.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Attention kernels: the fused RoPE attention forward and backward
 (``csrc/flash_attention_rope.cu``, ``csrc/flash_attention_rope_bwd.cu``),
-the rope-free forward (``csrc/flash_attention.cu``), and their plain
-PyTorch versions.
+the rope-free forward and backward (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``), and their plain PyTorch versions.
 
 Replaces ``unigen_tpu/ops/pallas/flash_attention.py``:
 
@@ -19,22 +19,23 @@ Replaces ``unigen_tpu/ops/pallas/flash_attention.py``:
   written in fp32.
 - ``flash_attention`` -> ``_attn_kernel`` (and, past 2560 keys,
   ``flash_attention_streaming`` -> ``_stream_kernel``): the same attention
-  without rotary, at head dim 64 (SD3) or 128, any Sq and Skv. Forward
-  only: its backward (the TPU's ``_attn_bwd_kernel`` and kv-blocked
-  ``_lse_kernel``/``_dq_blk_kernel``/``_dkv_blk_kernel``) is not ported, so
-  a CUDA call that would record a gradient raises.
+  without rotary, at head dim 64 (SD3) or 128, any Sq and Skv, and its VJP
+  ``_flash_bwd`` / ``_flash_stream_bwd`` -> ``_attn_bwd_kernel`` or the
+  kv-blocked ``_lse_kernel``/``_dq_blk_kernel``/``_dkv_blk_kernel``: the
+  RoPE backward's dQ and dK/dV kernels without the rotation.
 
 On the card one online-softmax kernel walks KV in tiles at any length, so
 each TPU pair (full-KV and streaming) has one kernel here.
 
-``flash_attention_rope`` is a ``torch.autograd.Function``: its forward saves
-q, k, v, the tables, the output and the row log-sum-exp; its backward gives
-dq, dk, dv and no gradient for the tables (the JAX VJP returns zeros for
-them). On CUDA tensors both directions launch kernels; on CPU tensors both
-take the plain versions. The two directions go through the module-level
-``flash_attention_rope_fwd`` and ``flash_attention_rope_bwd``, and the
-rope-free forward through ``flash_attention_fwd``, so a caller can route
-all of them at once.
+``flash_attention_rope`` and ``flash_attention`` are
+``torch.autograd.Function``s: the forward saves q, k, v (the tables), the
+output and the row log-sum-exp; the backward gives dq, dk, dv (and no
+gradient for the tables: the JAX VJP returns zeros for them). On CUDA
+tensors both directions launch kernels; on CPU tensors both take the plain
+versions. The directions go through the module-level
+``flash_attention_rope_fwd``/``flash_attention_rope_bwd`` and
+``flash_attention_fwd``/``flash_attention_bwd``, so a caller can route all
+of them at once.
 """
 
 from __future__ import annotations
@@ -50,13 +51,16 @@ from unigen_tpu_torch.ops.rope import apply_rotary
 KERNEL = "flash_attention_rope"
 KERNEL_BWD = "flash_attention_rope_bwd"
 KERNEL_NOROPE = "flash_attention"
+KERNEL_NOROPE_BWD = "flash_attention_bwd"
 HEAD_DIM = 128                  # the RoPE kernels
-HEAD_DIMS_NOROPE = (64, 128)    # the rope-free kernel
+HEAD_DIMS_NOROPE = (64, 128)    # the rope-free kernels
 # kernel launches, counted by the wrappers; reset by callers
-launches = 0          # RoPE forward
-dq_launches = 0       # RoPE backward, dQ kernel
-dkv_launches = 0      # RoPE backward, dK/dV kernel
-norope_launches = 0   # rope-free forward
+launches = 0              # RoPE forward
+dq_launches = 0           # RoPE backward, dQ kernel
+dkv_launches = 0          # RoPE backward, dK/dV kernel
+norope_launches = 0       # rope-free forward
+norope_dq_launches = 0    # rope-free backward, dQ kernel
+norope_dkv_launches = 0   # rope-free backward, dK/dV kernel
 
 
 def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
@@ -66,20 +70,27 @@ def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
     return sdpa_ref(apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin), v)
 
 
-def _bwd_ref_parts(q, k, v, o, do, cos, sin, kcos, ksin):
-    """The shared fp32 part of the plain backward: the rotated operands, P
-    and dS of ``_bwd_block_math`` (flash_attention.py:621-643), with
-    D = rowsum(dO * O) from the saved output as ``_flash_bwd_blocked``
-    takes it (:1070-1076)."""
+def _softmax_bwd_parts(qf, kf, v, o, do):
+    """The shared fp32 part of both plain backwards: P and dS of
+    ``_bwd_block_math`` (flash_attention.py:621-643) from fp32 (rotated,
+    where rotary applies) q and k, with D = rowsum(dO * O) from the saved
+    output as ``_flash_bwd_blocked`` takes it (:1070-1076). -> (P, dS, dO)"""
     f32 = torch.float32
-    qr = apply_rotary(q.to(f32), cos, sin)            # fp32, not rounded
-    kr = apply_rotary(k.to(f32), kcos, ksin)
     vf, dof = v.to(f32), do.to(f32)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.softmax(qr @ kr.transpose(-1, -2) * scale, dim=-1)
+    scale = 1.0 / math.sqrt(qf.shape[-1])
+    p = torch.softmax(qf @ kf.transpose(-1, -2) * scale, dim=-1)
     drow = (dof * o.to(f32)).sum(-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - drow) * scale
-    return qr, kr, p, ds, dof
+    return p, ds, dof
+
+
+def _bwd_ref_parts(q, k, v, o, do, cos, sin, kcos, ksin):
+    """The rotated operands (fp32, not rounded), P and dS of the plain RoPE
+    backward."""
+    f32 = torch.float32
+    qr = apply_rotary(q.to(f32), cos, sin)
+    kr = apply_rotary(k.to(f32), kcos, ksin)
+    return (qr, kr) + _softmax_bwd_parts(qr, kr, v, o, do)
 
 
 def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
@@ -99,7 +110,9 @@ def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
 _ENTRIES = {"flash_attention_rope": (KERNEL, 9, 3, 1),
             "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 12, 3, 2),
             "flash_attention_rope_bwd_dq": (KERNEL_BWD, 11, 3, 2),
-            "flash_attention": (KERNEL_NOROPE, 4, 4, 1)}
+            "flash_attention": (KERNEL_NOROPE, 5, 4, 1),
+            "flash_attention_bwd_dkv": (KERNEL_NOROPE_BWD, 8, 4, 2),
+            "flash_attention_bwd_dq": (KERNEL_NOROPE_BWD, 7, 4, 2)}
 
 
 def _entry(name: str):
@@ -280,18 +293,25 @@ def flash_attention_ref(q, k, v) -> torch.Tensor:
     return sdpa_ref(q, k, v)
 
 
-def flash_attention_fwd(q, k, v) -> torch.Tensor:
-    """Rope-free forward. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (and count the launch) or raise."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
-    what = "flash_attention"
+def flash_attention_bwd_ref(q, k, v, o, do):
+    """Plain backward in fp32 -> (dq, dk, dv) in the inputs' dtypes:
+    dq = dS k, dk = dS^T q, dv = P^T dO (``_bwd_ref_parts`` without the
+    rotation)."""
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    p, ds, dof = _softmax_bwd_parts(qf, kf, v, o, do)
+    return ((ds @ kf).to(q.dtype), (ds.transpose(-1, -2) @ qf).to(k.dtype),
+            (p.transpose(-1, -2) @ dof).to(v.dtype))
+
+
+def _check_norope(what, named, q, k, v):
+    """Raise unless q, k, v and the other named tensors are contiguous CUDA
+    tensors of q's dtype (bf16 or fp32) and shape rules, head dim 64/128."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {q.device} are neither CPU nor CUDA")
     dt = q.dtype
     if dt not in _DTYPES:
         raise ValueError(f"{what}: q, k, v must be one of {_DTYPES}, got {dt}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(named):
         if t.device != q.device or t.dtype != dt or not t.is_contiguous() \
                 or t.dim() != 4:
             raise ValueError(f"{what}: {name} must be a contiguous [B, H, S, D] "
@@ -305,30 +325,111 @@ def flash_attention_fwd(q, k, v) -> torch.Tensor:
                          f"{tuple(v.shape)} must agree")
     if k.shape[2] == 0:
         raise ValueError(f"{what}: empty key sequence")
+
+
+def flash_attention_fwd(q, k, v, with_lse=False):
+    """Rope-free forward -> (out, lse [B,H,Sq] f32 or None). CPU tensors take
+    the plain version (no lse: the plain backward recomputes P); CUDA tensors
+    launch the kernel (and count the launch) or raise. ``with_lse`` makes the
+    kernel also write the row log-sum-exp for the backward."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v), None
+    _check_norope("flash_attention", (), q, k, v)
+    b, h, sq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b * h * sq == 0:
-        return out
+        return out, lse
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     err = _entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
-        k.shape[2], d, scale_log2, int(dt == torch.float32),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2], d,
+        scale_log2, int(q.dtype == torch.float32),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, KERNEL_NOROPE)
     global norope_launches
     norope_launches += 1
-    return out
+    return out, lse
+
+
+def _norope_bwd_args(q, k, v, do, lse, drow):
+    b, h, sq, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), drow.data_ptr()),
+            (b * h, sq, k.shape[2], d, scale, scale * math.log2(math.e),
+             int(q.dtype == torch.float32),
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, drow):
+    """The rope-free dK/dV kernel alone on checked CUDA tensors -> (dk, dv);
+    counted."""
+    ptrs, rest = _norope_bwd_args(q, k, v, do, lse, drow)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    build.check(_entry("flash_attention_bwd_dkv")(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest), KERNEL_NOROPE_BWD + "_dkv")
+    global norope_dkv_launches
+    norope_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, drow):
+    """The rope-free dQ kernel alone on checked CUDA tensors -> dq; counted."""
+    ptrs, rest = _norope_bwd_args(q, k, v, do, lse, drow)
+    dq = torch.empty_like(q)
+    build.check(_entry("flash_attention_bwd_dq")(*ptrs, dq.data_ptr(), *rest),
+                KERNEL_NOROPE_BWD + "_dq")
+    global norope_dq_launches
+    norope_dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, o, lse, do):
+    """Rope-free backward -> (dq, dk, dv). CPU tensors take the plain version
+    (``lse`` unused); CUDA tensors run D = rowsum(dO * O) in fp32 (a torch
+    elementwise pass, as XLA computes it in JAX), then launch the dK/dV and
+    the dQ kernels (each counted) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do)
+    if lse is None:
+        raise ValueError("flash_attention_bwd: the kernels need the forward's lse")
+    _check_norope("flash_attention_bwd", (("o", o), ("do", do)), q, k, v)
+    b, h, sq, _ = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous() \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: needs the forward's contiguous "
+                         "f32 lse [B, H, Sq] and o, do of q's shape")
+    if b * h * sq == 0:
+        return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    drow = (do.float() * o.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, drow)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, drow)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, lse, do.contiguous())
 
 
 def flash_attention(q, k, v) -> torch.Tensor:
-    """q [B,H,Sq,D], k/v [B,H,Skv,D], D in (64, 128), any lengths. CPU
-    tensors take the plain version (differentiable by autograd); CUDA tensors
-    launch the kernel. Its backward is not ported: on CUDA, a call that
-    would record a gradient raises rather than run the plain math."""
-    if q.device.type == "cuda" and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "the rope-free attention backward is not ported to CUDA yet: it "
-            "is rows 5p and 6p of the kernel table (_attn_bwd_kernel, and "
-            "_lse_kernel/_dq_blk_kernel/_dkv_blk_kernel in "
-            "unigen_tpu/ops/pallas/flash_attention.py)")
-    return flash_attention_fwd(q, k, v)
+    """q [B,H,Sq,D], k/v [B,H,Skv,D], D in (64, 128) on CUDA, any lengths.
+    Differentiable in q, k and v (a ``torch.autograd.Function``). CPU
+    tensors take the plain versions; CUDA tensors launch the kernels (and
+    count the launches) or raise. Without a gradient to record, it is the
+    forward alone (no lse, nothing saved)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attention_fwd(q, k, v)[0]
