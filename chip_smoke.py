@@ -9,10 +9,13 @@ Phases, in order; any failure exits non-zero:
      per source, started together) into build/kernels.
   3. kernels: each kernel at the main paths' shapes against its plain
      PyTorch version on the card (attention bf16 within atol=rtol=1e-2, W4A8
-     bit-identical, the attention backward's dq, dk, dv each within 2e-2 of
-     its largest |value| and 1e-2 relative L2), with CUDA-event medians of
-     the kernel, the plain version and a library yardstick that the port
-     never calls, beside the bound.
+     and the RoPE rotation pass bit-identical, the attention backward's dq,
+     dk, dv each within 2e-2 of its largest |value| and 1e-2 relative L2),
+     with CUDA-event medians of the kernel, the plain version and a library
+     yardstick that the port never calls, beside the bound; the RoPE forward
+     and the whole backwards also by profiler device time (device_ms); a
+     "ptxas" line with the registers, spills and static shared memory of
+     the RoPE kernels from their build logs.
   4. slice: the full-width W4A8 UniGen-FLUX (flux_full, 512^2, 4 Euler steps)
      serves four b=1 requests through MicroBatchServer(batch_size=2); the
      launch counters must show every attention and every W4A8 linear of
@@ -73,6 +76,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -375,15 +379,91 @@ def path_check_summary(checks):
     return out
 
 
+def attention_tables(torch, dev, ids, sq, skv, ident):
+    """FLUX's multi-axis rope tables for sq query and skv key rows, the last
+    ``ident`` key rows identity (cos=1, sin=0), the KV-append convention."""
+    from unigen_tpu_torch.ops.rope import rope_multi_axis
+    d = 128
+    cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
+    kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
+    return (cos, sin, torch.cat([kcos, torch.ones(ident, d, device=dev)]),
+            torch.cat([ksin, torch.zeros(ident, d, device=dev)]))
+
+
+def rotation_row(torch, xs, tabs, direction):
+    """The rotation pass as a direction runs it: the forward rotates k (and
+    rounds v where the inputs are fp32), the backward rotates q and k (and
+    rounds v and dO where fp32). Bit-identical to the plain version (ok);
+    bound: the inputs and the tables read once, the bf16 outputs written
+    once, at 3.35 TB/s. No PyTorch call computes it: library_ms is null."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    cos, sin, kcos, ksin = tabs
+    fp32 = xs[0].dtype == torch.float32
+    if direction == "forward":
+        jobs = [(xs[1], kcos, ksin)] + ([(xs[2], None, None)] if fp32 else [])
+    else:
+        jobs = [(xs[0], cos, sin), (xs[1], kcos, ksin)] + (
+            [(xs[2], None, None), (xs[3], None, None)] if fp32 else [])
+    got = fa.rope_rotate(jobs)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, fa.rope_rotate_ref(*job)) for x, job in zip(got, jobs))
+    nbytes = sum(x.numel() * (x.element_size() + 2) + (0 if c is None else 8 * c.numel())
+                 for x, c, _ in jobs)
+    row = dict(kernel="rope_rotate", direction=direction, dtype=str(xs[0].dtype),
+               shapes=[list(x.shape) for x, _, _ in jobs], jobs=len(jobs), ok=ok,
+               max_abs_err=max((x.float() - fa.rope_rotate_ref(*job).float()).abs().max().item()
+                               for x, job in zip(got, jobs)),
+               ms=median_ms(lambda: fa.rope_rotate(jobs)),
+               plain_ms=median_ms(lambda: [fa.rope_rotate_ref(*job) for job in jobs]),
+               device_ms=device_ms(torch, lambda: fa.rope_rotate(jobs)),
+               library_ms=None, bound_ms=nbytes / HBM_BYTES * 1e3, bound_by="bytes")
+    emit(row)
+    return row
+
+
+def kernel_name(mangled):
+    """The unqualified name of a mangled kernel ``..._kernel``: the
+    identifier that ends there and is preceded by its length."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel"), end + 1):
+        if mangled[:end - n].endswith(str(n)):
+            return mangled[end - n:end]
+    return mangled
+
+
+def ptxas_line(build, names):
+    """Registers, spills, stack and static shared memory of every kernel in
+    the build logs of ``names`` (nvcc -Xptxas -v), and ptxas's warnings."""
+    out, warnings = {}, []
+    for name in names:
+        log = build._target(name).with_suffix(".log").read_text()
+        for m in re.finditer(r"Compiling entry function '(\w+)'(.*?)Used (\d+) registers"
+                             r"([^\n]*)", log, re.S):
+            mangled, body, regs, tail = m.groups()
+            key = kernel_name(mangled) + (
+                "<float>" if "IfE" in mangled else
+                "<bf16>" if "bfloat16" in mangled else "")
+            spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", body)
+            smem = re.search(r"(\d+) bytes smem", tail)
+            out[key] = dict(registers=int(regs),
+                            stack=int(spill.group(1)) if spill else None,
+                            spill_stores=int(spill.group(2)) if spill else None,
+                            spill_loads=int(spill.group(3)) if spill else None,
+                            static_smem=int(smem.group(1)) if smem else 0)
+        warnings += [line.strip() for line in log.splitlines() if "warning" in line]
+    emit(dict(phase="ptxas", kernels=out, warnings=warnings))
+
+
 def phase_kernels(torch, dev, seed):
     import torch.nn.functional as F
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.quant import _int_mm, unpack_int4
-    from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
+    from unigen_tpu_torch.ops.rope import apply_rotary
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    rows = {"flash_attention_rope": [], "w4a8_matmul": []}
+    rows = {"flash_attention_rope": [], "rope_rotate": [], "w4a8_matmul": []}
 
     def ids(n):
         r = torch.arange(n, device=dev)
@@ -391,10 +471,8 @@ def phase_kernels(torch, dev, seed):
 
     for b, h, sq, skv, ident in ATTN_CASES + ROPE_LONG_CASES:
         d = fa.HEAD_DIM
-        cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
-        kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
-        kcos = torch.cat([kcos, torch.ones(ident, d, device=dev)])
-        ksin = torch.cat([ksin, torch.zeros(ident, d, device=dev)])
+        tabs = attention_tables(torch, dev, ids, sq, skv, ident)
+        cos, sin, kcos, ksin = tabs
         q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
                    for s in (sq, skv, skv))
         args = (q, k, v, cos, sin, kcos, ksin)
@@ -418,9 +496,21 @@ def phase_kernels(torch, dev, seed):
                                       *((5, 1) if long else ())),
                    library_ms=median_ms(
                        lambda: F.scaled_dot_product_attention(qr, kr, v)),
+                   device_ms=device_ms(torch, lambda: fa.flash_attention_rope(*args)),
+                   library_device_ms=device_ms(
+                       torch, lambda: F.scaled_dot_product_attention(qr, kr, v)),
                    bound_ms=bms, bound_by=by)
         emit(row)
         rows["flash_attention_rope"].append(row)
+        if (b, h, sq, skv, ident) in ATTN_CASES[:1] + ROPE_LONG_CASES[:1]:
+            rows["rope_rotate"].append(rotation_row(torch, (q, k, v), tabs, "forward"))
+    for b, h, sq, skv, ident in ATTN_CASES[:1]:
+        tabs = attention_tables(torch, dev, ids, sq, skv, ident)
+        q, k, v, do = (torch.randn(b, h, s, fa.HEAD_DIM, device=dev, generator=g).bfloat16()
+                       for s in (sq, skv, skv, sq))
+        rows["rope_rotate"].append(rotation_row(torch, (q, k, v, do), tabs, "backward"))
+        rows["rope_rotate"].append(rotation_row(
+            torch, tuple(x.float() for x in (q, k, v, do)), tabs, "backward"))
 
     rows["flash_attention"] = []
     for b, h, sq, skv, d in NOROPE_CASES:
@@ -548,20 +638,18 @@ def library_backward(torch, leaves, do):
 def backward_rows(torch, dev, g, ids):
     """The RoPE backward (rows 5r/6r) at the training path's shapes: checked
     against the fp32 plain backward at b=1 and b=2 (B*H = 24 and 48),
-    timed at b=1 by time_backward, the library yardstick on pre-rotated
-    q, k."""
+    timed at b=1 by time_backward (the whole backward with its rotation
+    pass; each kernel alone on operands the pass rotated before), the
+    library yardstick on pre-rotated q, k."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
-    from unigen_tpu_torch.ops.rope import apply_rotary, rope_multi_axis
+    from unigen_tpu_torch.ops.rope import apply_rotary
     rows = {"flash_attention_rope_bwd": [], BWD_NAMES[0]: [], BWD_NAMES[1]: []}
     for b_mult in (1, 2):
         for b, h, sq, skv, ident in ATTN_CASES:
             b *= b_mult
             d = fa.HEAD_DIM
-            cos, sin = rope_multi_axis(ids(sq), (16, 56, 56))
-            kcos, ksin = rope_multi_axis(ids(skv - ident), (16, 56, 56))
-            kcos = torch.cat([kcos, torch.ones(ident, d, device=dev)])
-            ksin = torch.cat([ksin, torch.zeros(ident, d, device=dev)])
-            tabs = (cos, sin, kcos, ksin)
+            tabs = attention_tables(torch, dev, ids, sq, skv, ident)
+            cos, sin, kcos, ksin = tabs
             q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
                            for s in (sq, skv, skv, sq))
             out, lse = fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
@@ -582,6 +670,7 @@ def backward_rows(torch, dev, g, ids):
             if b_mult == 1:
                 drow = (do.float() * out.float()).sum(-1)
                 kargs = (q, k, v, do, lse, drow, *tabs)
+                rotated = fa._rotated_bwd_operands(q, k, v, do, *tabs)
                 leaves = (apply_rotary(q, cos, sin).requires_grad_(),
                           apply_rotary(k, kcos, ksin).requires_grad_(),
                           v.clone().requires_grad_())
@@ -598,8 +687,10 @@ def backward_rows(torch, dev, g, ids):
                                            row, dict(
                     whole=lambda: fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs),
                     plain=lambda: fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs),
-                    dq=lambda: fa.flash_attention_rope_bwd_dq(*kargs), plain_dq=plain_dq,
-                    dkv=lambda: fa.flash_attention_rope_bwd_dkv(*kargs), plain_dkv=plain_dkv,
+                    dq=lambda: fa.flash_attention_rope_bwd_dq(*kargs, rotated=rotated),
+                    plain_dq=plain_dq,
+                    dkv=lambda: fa.flash_attention_rope_bwd_dkv(*kargs, rotated=rotated),
+                    plain_dkv=plain_dkv,
                     leaves=leaves, lib=library_backward(torch, leaves, do)))
                 for name, krow in per_kernel.items():
                     rows[name].append(krow)
@@ -675,11 +766,12 @@ def device_breakdown(torch, fn, phase="profile", **extra):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0,
+    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0, "rope_rotate": 0.0,
               "flash_attention_rope_bwd": 0.0, "flash_attention": 0.0,
               "flash_attention_bwd": 0.0, "library gemm": 0.0, "other": 0.0}
     for name, us in by_name.items():
         key = ("w4a8_matmul" if "w4a8" in name else
+               "rope_rotate" if "rope_rotate" in name else
                "flash_attention_rope_bwd" if "flash_rope_bwd" in name else
                "flash_attention_bwd" if "flash_bwd" in name else
                "flash_attention_rope" if "flash_rope" in name else
@@ -700,7 +792,8 @@ def launch_counts():
     """Every kernel wrapper's launch count, by kernel name."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    return {"flash_attention_rope": fa.launches, BWD_NAMES[0]: fa.dq_launches,
+    return {"flash_attention_rope": fa.launches, "rope_rotate": fa.rotate_launches,
+            BWD_NAMES[0]: fa.dq_launches,
             BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches,
             "flash_attention": fa.norope_launches,
             NOROPE_BWD_NAMES[0]: fa.norope_dq_launches,
@@ -710,7 +803,8 @@ def launch_counts():
 def reset_launch_counts():
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    fa.launches = fa.dq_launches = fa.dkv_launches = fa.norope_launches = 0
+    fa.launches = fa.rotate_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.norope_launches = 0
     fa.norope_dq_launches = fa.norope_dkv_launches = 0
     qm.launches = 0
 
@@ -737,7 +831,7 @@ def expected_launches(params, cfg, batch: int = 1):
     otherwise; with block experts, two rope-free calls per expert and
     condition, per sample under per-sample routing), and the W4A8 linear
     calls counted from the tree (a stacked leaf is used once per
-    application of its stack)."""
+    application of its stack); one rotation pass per RoPE attention call."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
     uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers}
@@ -751,8 +845,8 @@ def expected_launches(params, cfg, batch: int = 1):
         experts = 2 * cc.moe.num_experts(cfg.condition_nums) * cfg.condition_nums
         if cc.moe.batch_mode == "per_sample":
             experts *= batch
-    return {"flash_attention_rope": bb.num_layers + bb.num_single_layers
-            + (control if cc.use_rope else 0),
+    rope = bb.num_layers + bb.num_single_layers + (control if cc.use_rope else 0)
+    return {"flash_attention_rope": rope, "rope_rotate": rope,
             "flash_attention": (0 if cc.use_rope else control) + experts,
             "w4a8_matmul": w4}
 
@@ -763,7 +857,7 @@ def expected_train_launches(params, cfg, batch: int = 1):
     the forward that each remat body (base + control double block i >= 1,
     base + control single block) runs again in the backward; one backward
     per attention call except base double block 0, which sees no trainable
-    input."""
+    input; one rotation pass per RoPE forward and per RoPE backward."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
     per = expected_launches(params, cfg, batch)
@@ -774,7 +868,8 @@ def expected_train_launches(params, cfg, batch: int = 1):
     w4_again = sum(again.get(path[1], 0) for path, _ in tree_leaves_with_path(params)
                    if path[-1] == "w_q4")
     rope, norope = per["flash_attention_rope"], per["flash_attention"]
-    return {"flash_attention_rope": rope + base_again + (ctrl_again if cc.use_rope else 0),
+    rope_fwd = rope + base_again + (ctrl_again if cc.use_rope else 0)
+    return {"flash_attention_rope": rope_fwd, "rope_rotate": rope_fwd + rope - 1,
             BWD_NAMES[0]: rope - 1, BWD_NAMES[1]: rope - 1,
             "flash_attention": norope + (0 if cc.use_rope else ctrl_again),
             NOROPE_BWD_NAMES[0]: norope, NOROPE_BWD_NAMES[1]: norope,
@@ -1129,8 +1224,10 @@ def hires_phase(torch, phase, run, forward, per_forward, steps, **extra):
     emit(dict(phase=phase, steps=steps, seconds=dt, ms_per_denoise_step=dt / steps * 1e3,
               launches=launches, expected_launches=want, out_shape=list(out.shape),
               path_check=path_check, **extra))
+    # the rotation pass runs inside each flash_attention_rope call, which is
+    # held against its plain version as a whole
     if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
-            or set(path_check) != set(want):
+            or set(path_check) != set(want) - {"rope_rotate"}:
         raise SystemExit(f"{phase}: a kernel disagrees with its plain version on "
                          f"the path: {path_check}")
     return launches
@@ -1345,6 +1442,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
+    ptxas_line(build, [fa.KERNEL, fa.KERNEL_BWD])
 
     # 3. kernels at the main paths' shapes
     rows = phase_kernels(torch, dev, args.seed)
@@ -1377,7 +1475,9 @@ def main() -> int:
     # from the main path that runs it (training for the FLUX kernels, with
     # the serving run's beside the forward kernels; SD3 serving for the
     # rope-free forward, with train_blocks' beside it; train_blocks for the
-    # rope-free backward)
+    # rope-free backward). The RoPE kernels' times include their rotation
+    # pass (rope_rotate in flash_attention_rope.cu, counted apart: one launch
+    # per RoPE forward and per RoPE backward call).
     pallas = "unigen_tpu/ops/pallas/"
     sources = {
         "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128",
@@ -1412,6 +1512,9 @@ def main() -> int:
             entry["serving_launches"] = serving[name]
         if name == "flash_attention":
             entry["train_blocks_launches"] = blocks[name]
+        if name in ("flash_attention_rope",) + BWD_NAMES:
+            entry.update(rotation_source="unigen_tpu_torch/csrc/flash_attention_rope.cu",
+                         rotation_launches=main_path["rope_rotate"])
         kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

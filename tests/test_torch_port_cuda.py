@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
-NVIDIA card (the RoPE attention forward and its backward, the rope-free
+NVIDIA card (the rotation pass, the RoPE attention forward and its
+backward, the rope-free
 attention forward and its backward at head dim 64 and 128, and the W4A8
 matmul). Marked ``cuda``; without a card they skip. This file imports no
 JAX, so it also runs where JAX is absent:
@@ -35,21 +36,51 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sq,skv,n_identity", [(130, 257, 0), (1536, 2048, 512)])
+@pytest.mark.parametrize("sq,skv,n_identity", [(130, 257, 0), (171, 171, 0),
+                                               (1536, 2048, 512)])
+def test_rotation_pass_bit_identical_on_card(card, sq, skv, n_identity, dtype):
+    """One launch rotates q and k and rounds v: each output equals
+    apply_rotary rounded to bf16 (v: v rounded to bf16) bit for bit."""
+    from unigen_tpu_torch.ops.rope import apply_rotary
+    g = torch.Generator(device=card).manual_seed(8)
+    cos, sin, kcos, ksin = _tables(sq, skv, n_identity, card)
+    q, k, v = (torch.randn(2, 3, s, 128, device=card, generator=g).to(dtype)
+               for s in (sq, skv, skv))
+    before = t_fa.rotate_launches
+    got = t_fa.rope_rotate([(q, cos, sin), (k, kcos, ksin), (v, None, None)])
+    torch.cuda.synchronize()
+    assert t_fa.rotate_launches == before + 1
+    want = (apply_rotary(q, cos, sin).bfloat16(), apply_rotary(k, kcos, ksin).bfloat16(),
+            v.bfloat16())
+    for x, y in zip(got, want):
+        assert x.dtype == torch.bfloat16 and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv,n_identity", [(130, 257, 0), (171, 171, 0),
+                                               (1536, 2048, 512)])
 def test_attention_kernel_matches_plain_on_card(card, sq, skv, n_identity, dtype):
     """bf16, and fp32 inputs (rounded to bf16 for the tensor cores, written
-    in fp32), within atol=rtol=1e-2 of the plain version in the same dtype."""
+    in fp32), within atol=rtol=1e-2 of the plain version in the same dtype;
+    one launch of the rotation pass and one of the kernel; the lse is the
+    row log-sum-exp of the bf16-rounded rotated logits."""
+    from unigen_tpu_torch.ops.rope import apply_rotary
     g = torch.Generator(device=card).manual_seed(0)
     tabs = _tables(sq, skv, n_identity, card)
     q, k, v = (torch.randn(1, 4, s, 128, device=card, generator=g).to(dtype)
                for s in (sq, skv, skv))
-    before = t_fa.launches
-    out = t_fa.flash_attention_rope(q, k, v, *tabs)
+    before = (t_fa.launches, t_fa.rotate_launches)
+    out, lse = t_fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
     torch.cuda.synchronize()
-    assert t_fa.launches == before + 1
+    assert (t_fa.launches, t_fa.rotate_launches) == (before[0] + 1, before[1] + 1)
     ref = t_fa.flash_attention_rope_ref(q, k, v, *tabs)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+    qr, kr = (apply_rotary(x, c, s_).bfloat16().float()
+              for x, c, s_ in ((q, tabs[0], tabs[1]), (k, tabs[2], tabs[3])))
+    logits = (qr @ kr.transpose(-1, -2)) / 128 ** 0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -74,7 +105,9 @@ def _rel_l2(a, b):
 @pytest.mark.parametrize("b,sq,skv,n_identity,dtype", [
     (1, 130, 257, 0, torch.bfloat16), (1, 200, 96, 40, torch.bfloat16),
     (2, 1536, 2048, 512, torch.bfloat16), (1, 2560, 2560, 0, torch.bfloat16),
-    (1, 200, 96, 40, torch.float32), (2, 1536, 2048, 512, torch.float32)])
+    (1, 200, 96, 40, torch.float32), (2, 1536, 2048, 512, torch.float32),
+    (1, 171, 171, 0, torch.bfloat16), (1, 171, 171, 0, torch.float32),
+    (1, 130, 257, 0, torch.float32)])
 def test_attention_backward_kernels_match_plain_on_card(card, b, sq, skv, n_identity,
                                                         dtype):
     """dq, dk, dv within 2e-2 of each one's largest |value| and 1e-2 relative
@@ -87,10 +120,11 @@ def test_attention_backward_kernels_match_plain_on_card(card, b, sq, skv, n_iden
     q, k, v, do = (torch.randn(b, 3, s, 128, device=card, generator=g).to(dtype)
                    for s in (sq, skv, skv, sq))
     out, lse = t_fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
-    before = (t_fa.dq_launches, t_fa.dkv_launches)
+    before = (t_fa.dq_launches, t_fa.dkv_launches, t_fa.rotate_launches)
     got = t_fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
     torch.cuda.synchronize()
-    assert (t_fa.dq_launches, t_fa.dkv_launches) == (before[0] + 1, before[1] + 1)
+    assert (t_fa.dq_launches, t_fa.dkv_launches, t_fa.rotate_launches) == tuple(
+        n + 1 for n in before)
     want = t_fa.flash_attention_rope_bwd_ref(q, k, v, out, do, *tabs)
     for x, y in zip(got, want):
         assert x.dtype == dtype
@@ -104,19 +138,36 @@ def test_attention_backward_kernels_match_plain_on_card(card, b, sq, skv, n_iden
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_backward_deterministic_on_card(card, dtype):
+    """Two backward runs on the same inputs give the same bits: the dQ and
+    dK/dV kernels own their outputs and use no atomics."""
+    g = torch.Generator(device=card).manual_seed(9)
+    tabs = _tables(1536, 2048, 512, card)
+    q, k, v, do = (torch.randn(1, 6, s, 128, device=card, generator=g).to(dtype)
+                   for s in (1536, 2048, 2048, 1536))
+    out, lse = t_fa.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
+    first = t_fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
+    second = t_fa.flash_attention_rope_bwd(q, k, v, out, lse, do, *tabs)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_attention_autograd_runs_kernels_on_card(card):
     """torch.autograd through flash_attention_rope launches the forward and
-    both backward kernels once each, and agrees with autograd of the plain
-    forward."""
+    both backward kernels once each, and the rotation pass once per
+    direction, and agrees with autograd of the plain forward."""
     g = torch.Generator(device=card).manual_seed(3)
     tabs = _tables(96, 160, 32, card)
     leaves = [torch.randn(1, 2, s, 128, device=card, generator=g).bfloat16()
               .requires_grad_() for s in (96, 160, 160)]
-    before = (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches)
+    before = (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches, t_fa.rotate_launches)
     out = t_fa.flash_attention_rope(*leaves, *tabs)
     grads = torch.autograd.grad(out.float().square().sum(), leaves)
-    assert (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches) == tuple(
-        n + 1 for n in before)
+    assert (t_fa.launches, t_fa.dq_launches, t_fa.dkv_launches,
+            t_fa.rotate_launches) == tuple(n + 1 for n in before[:3]) + (before[3] + 2,)
     ref = t_fa.flash_attention_rope_ref(*leaves, *tabs)
     want = torch.autograd.grad(ref.float().square().sum(), leaves)
     for x, y in zip(grads, want):

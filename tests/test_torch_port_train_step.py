@@ -338,8 +338,9 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
     """One W4A8 split micro-step with remat "full" calls each attention
     forward (RoPE and rope-free), each attention backward and the W4A8
     matmul exactly as often as chip_smoke.py's expected_train_launches says
-    (the recomputed forwards of every remat body included), so the card's
-    launch check is exact."""
+    (the recomputed forwards of every remat body included), and the formula
+    counts one RoPE rotation pass per RoPE call of either direction, so the
+    card's launch check is exact."""
     import chip_smoke
     calls = {"fwd": 0, "bwd": 0, "w4a8": 0, "norope_fwd": 0, "norope_bwd": 0}
 
@@ -373,5 +374,7 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
                      "norope_fwd": want["flash_attention"],
                      "norope_bwd": want["flash_attention_bwd_dq"]}
     assert want["flash_attention_rope_bwd_dq"] == want["flash_attention_rope_bwd_dkv"]
+    # one rotation pass per RoPE forward and per RoPE backward call
+    assert want["rope_rotate"] == calls["fwd"] + calls["bwd"]
     assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
     assert (want["flash_attention"] > 0) == (control == "blocks")

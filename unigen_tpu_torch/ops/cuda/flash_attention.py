@@ -14,9 +14,13 @@ Replaces ``unigen_tpu/ops/pallas/flash_attention.py``:
   cos/sin [Sq, D] are the Q-side tables, kcos/ksin [Skv, D] the K-side ones
   (identity rows for KV-append keys). The kernels take q, k, v
   [B, H, S, 128] in bf16, or all in fp32 (the ``Trainer``'s fp32
-  activations): fp32 operands are rounded to bf16 for the tensor cores where
-  they are staged, as bf16 ones are after the rotation, and the results are
-  written in fp32.
+  activations): fp32 operands are rounded to bf16 for the tensor cores, as
+  bf16 ones are after the rotation, and the results are written in fp32.
+  ``rope_rotate`` is the rotation pass both directions run first (one
+  launch per call, counted apart): the TPU kernel rotates K once per head
+  in VMEM; on the card the rotated K (and, for the backward, Q), and the
+  bf16 rounding of fp32 V and dO, go to bf16 buffers that the attention
+  kernels read by TMA.
 - ``flash_attention`` -> ``_attn_kernel`` (and, past 2560 keys,
   ``flash_attention_streaming`` -> ``_stream_kernel``): the same attention
   without rotary, at head dim 64 (SD3) or 128, any Sq and Skv, and its VJP
@@ -56,6 +60,7 @@ HEAD_DIM = 128                  # the RoPE kernels
 HEAD_DIMS_NOROPE = (64, 128)    # the rope-free kernels
 # kernel launches, counted by the wrappers; reset by callers
 launches = 0              # RoPE forward
+rotate_launches = 0       # rotation pass (one per RoPE forward or backward)
 dq_launches = 0           # RoPE backward, dQ kernel
 dkv_launches = 0          # RoPE backward, dK/dV kernel
 norope_launches = 0       # rope-free forward
@@ -68,6 +73,63 @@ def flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin) -> torch.Tensor:
     fp32-softmax attention of ``ops/attention.sdpa_ref``."""
     from unigen_tpu_torch.ops.attention import sdpa_ref
     return sdpa_ref(apply_rotary(q, cos, sin), apply_rotary(k, kcos, ksin), v)
+
+
+def rope_rotate_ref(x, cos=None, sin=None) -> torch.Tensor:
+    """Plain version of one rotation job: ``apply_rotary`` (fp32, rounded to
+    x's dtype) rounded to bf16, the operand ``flash_attention_rope_ref``
+    feeds its bf16 product; without tables x rounded to bf16."""
+    if cos is not None:
+        x = apply_rotary(x, cos, sin)
+    return x.to(torch.bfloat16)
+
+
+def rope_rotate(jobs):
+    """The rotation pass: for each (x, cos, sin) of ``jobs`` (at most four;
+    cos = sin = None for a plain rounding) a bf16 tensor of x's shape. CPU
+    tensors take the plain version; CUDA tensors run all jobs in one launch
+    of the kernel (counted) or raise."""
+    if jobs[0][0].device.type == "cpu":
+        return [rope_rotate_ref(*job) for job in jobs]
+    if not 1 <= len(jobs) <= 4:
+        raise ValueError("rope_rotate: one to four jobs")
+    bh = jobs[0][0].shape[0] * jobs[0][0].shape[1]
+    for x, cos, sin in jobs:
+        if x.dtype not in _DTYPES or not x.is_cuda or not x.is_contiguous() \
+                or x.dim() != 4 or x.shape[-1] != HEAD_DIM \
+                or x.shape[0] * x.shape[1] != bh:
+            raise ValueError(f"rope_rotate: x must be a contiguous [B, H, S, {HEAD_DIM}] "
+                             f"bf16 or fp32 CUDA tensor of one B*H, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        if cos is not None and not all(
+                t.shape == (x.shape[2], HEAD_DIM) and t.dtype == torch.float32
+                and t.device == x.device and t.is_contiguous() for t in (cos, sin)):
+            raise ValueError("rope_rotate: tables must be contiguous f32 [S, D] "
+                             "on x's device")
+    return _rotate(jobs)
+
+
+def _rotate(jobs):
+    """Launch the rotation pass on checked CUDA jobs (counted)."""
+    outs = [torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+            for x, _, _ in jobs]
+    if not any(o.numel() for o in outs):
+        return outs
+    pad = [None] * (4 - len(jobs))
+    ptrs = [(ctypes.c_void_p * 4)(*vals, *pad) for vals in (
+        [x.data_ptr() for x, _, _ in jobs], [o.data_ptr() for o in outs],
+        [None if c is None else c.data_ptr() for _, c, _ in jobs],
+        [None if c is None else c.data_ptr() for _, _, c in jobs])]
+    ints = [(ctypes.c_int * 4)(*vals) for vals in (
+        [x.shape[2] for x, _, _ in jobs],
+        [int(x.dtype == torch.float32) for x, _, _ in jobs])]
+    x = jobs[0][0]
+    build.check(_entry("rope_rotate")(
+        *ptrs, *ints, len(jobs), x.shape[0] * x.shape[1],
+        torch.cuda.current_stream(x.device).cuda_stream), KERNEL + "_rotate")
+    global rotate_launches
+    rotate_launches += 1
+    return outs
 
 
 def _softmax_bwd_parts(qf, kf, v, o, do):
@@ -106,10 +168,13 @@ def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
 
 # C entry points: (library, pointer arguments, int arguments, float
 # arguments); the ints are BH, Sq, Skv (and D for the rope-free kernel), and
-# every entry ends with an fp32 flag and the stream
-_ENTRIES = {"flash_attention_rope": (KERNEL, 9, 3, 1),
-            "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 12, 3, 2),
-            "flash_attention_rope_bwd_dq": (KERNEL_BWD, 11, 3, 2),
+# every entry ends with an fp32 flag and the stream. rope_rotate takes six
+# arrays (sources, destinations, cos, sin, rows, fp32 flags), then the job
+# count and BH as ints, then the stream.
+_ENTRIES = {"rope_rotate": (KERNEL, 6, 1, 0),
+            "flash_attention_rope": (KERNEL, 11, 3, 1),
+            "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 10, 3, 2),
+            "flash_attention_rope_bwd_dq": (KERNEL_BWD, 9, 3, 2),
             "flash_attention": (KERNEL_NOROPE, 5, 4, 1),
             "flash_attention_bwd_dkv": (KERNEL_NOROPE_BWD, 8, 4, 2),
             "flash_attention_bwd_dq": (KERNEL_NOROPE_BWD, 7, 4, 2)}
@@ -161,11 +226,20 @@ def _tables(cos, sin, kcos, ksin):
             ("ksin", ksin, f32)]
 
 
+def _tma_ready(what, *tensors):
+    """Raise unless each tensor's address suits a TMA tensor map (16 bytes)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must start on a 16-byte boundary")
+
+
 def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
     """Forward -> (out [B,H,Sq,D], lse [B,H,Sq] f32 or None). CPU tensors take
     the plain version (no lse: the plain backward recomputes P); CUDA tensors
-    launch the kernel (and count the launch) or raise. ``with_lse`` makes the
-    kernel also write the row log-sum-exp for the backward."""
+    run the rotation pass (kr = rot(k), and v rounded to bf16 for fp32
+    inputs) and the kernel, both launched by one C call (each launch
+    counted), or raise. ``with_lse`` makes the kernel also write the row
+    log-sum-exp for the backward."""
     if q.device.type == "cpu":
         return flash_attention_rope_ref(q, k, v, cos, sin, kcos, ksin), None
     dt = q.dtype
@@ -180,47 +254,70 @@ def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
            if with_lse else None)
     if b * h * sq == 0:
         return out, lse
+    fp32 = dt == torch.float32
+    if not fp32:
+        _tma_ready("flash_attention_rope", v)
+    kr = torch.empty(k.shape, dtype=torch.bfloat16, device=k.device)
+    vb = torch.empty(v.shape, dtype=torch.bfloat16, device=v.device) if fp32 else None
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     err = _entry("flash_attention_rope")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        kcos.data_ptr(), ksin.data_ptr(), kr.data_ptr(),
+        None if vb is None else vb.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
-        scale_log2, int(dt == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        scale_log2, int(fp32), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, KERNEL)
-    global launches
+    global launches, rotate_launches
+    rotate_launches += 1
     launches += 1
     return out, lse
 
 
-def _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
+def _rotated_bwd_operands(q, k, v, do, cos, sin, kcos, ksin):
+    """(qr, kr, v, dO) in bf16 for the backward kernels, from one launch of
+    the rotation pass (which also rounds fp32 v and dO)."""
+    if q.dtype == torch.float32:
+        return tuple(_rotate([(q, cos, sin), (k, kcos, ksin),
+                              (v, None, None), (do, None, None)]))
+    _tma_ready("flash_attention_rope_bwd", v, do)
+    return (*_rotate([(q, cos, sin), (k, kcos, ksin)]), v, do)
+
+
+def _bwd_args(rotated, q, k, lse, drow):
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), drow.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-             kcos.data_ptr(), ksin.data_ptr()),
+    return ((*(x.data_ptr() for x in rotated), lse.data_ptr(), drow.data_ptr()),
             (q.shape[0] * q.shape[1], q.shape[2], k.shape[2], scale,
              scale * math.log2(math.e), int(q.dtype == torch.float32),
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
-def flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
-    """The dK/dV kernel alone on checked CUDA tensors -> (dk, dv); counted."""
-    ptrs, rest = _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin)
+def flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, cos, sin, kcos, ksin,
+                                 rotated=None):
+    """The dK/dV kernel alone on checked CUDA tensors -> (dk, dv); counted.
+    ``rotated``: the (qr, kr, v, dO) of ``_rotated_bwd_operands``, else the
+    rotation pass runs first (and is counted)."""
+    rotated = rotated or _rotated_bwd_operands(q, k, v, do, cos, sin, kcos, ksin)
+    ptrs, rest = _bwd_args(rotated, q, k, lse, drow)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     build.check(_entry("flash_attention_rope_bwd_dkv")(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest), KERNEL_BWD + "_dkv")
+        *ptrs, kcos.data_ptr(), ksin.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *rest), KERNEL_BWD + "_dkv")
     global dkv_launches
     dkv_launches += 1
     return dk, dv
 
 
-def flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
-    """The dQ kernel alone on checked CUDA tensors -> dq; counted."""
-    ptrs, rest = _bwd_args(q, k, v, do, lse, drow, cos, sin, kcos, ksin)
+def flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, cos, sin, kcos, ksin,
+                                rotated=None):
+    """The dQ kernel alone on checked CUDA tensors -> dq; counted.
+    ``rotated`` as for flash_attention_rope_bwd_dkv."""
+    rotated = rotated or _rotated_bwd_operands(q, k, v, do, cos, sin, kcos, ksin)
+    ptrs, rest = _bwd_args(rotated, q, k, lse, drow)
     dq = torch.empty_like(q)
     build.check(_entry("flash_attention_rope_bwd_dq")(
-        *ptrs, dq.data_ptr(), *rest), KERNEL_BWD + "_dq")
+        *ptrs, cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), *rest),
+        KERNEL_BWD + "_dq")
     global dq_launches
     dq_launches += 1
     return dq
@@ -229,8 +326,8 @@ def flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, cos, sin, kcos, ksin):
 def flash_attention_rope_bwd(q, k, v, o, lse, do, cos, sin, kcos, ksin):
     """Backward -> (dq, dk, dv). CPU tensors take the plain version (``lse``
     unused); CUDA tensors run D = rowsum(dO * O) in fp32 (a torch elementwise
-    pass, as XLA computes it in JAX), then launch the dK/dV and the dQ
-    kernels (each counted) or raise."""
+    pass, as XLA computes it in JAX), one rotation pass for both kernels,
+    then the dK/dV and the dQ kernels (each launch counted), or raise."""
     if q.device.type == "cpu":
         return flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin)
     if lse is None:
@@ -250,8 +347,11 @@ def flash_attention_rope_bwd(q, k, v, o, lse, do, cos, sin, kcos, ksin):
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
     drow = (do.float() * o.float()).sum(-1)
     tables = (cos, sin, kcos, ksin)
-    dk, dv = flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, *tables)
-    dq = flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, *tables)
+    rotated = _rotated_bwd_operands(q, k, v, do, *tables)
+    dk, dv = flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, *tables,
+                                          rotated=rotated)
+    dq = flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, *tables,
+                                     rotated=rotated)
     return dq, dk, dv
 
 
