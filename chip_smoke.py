@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (unigen_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
+    python3 chip_smoke.py --schedules     # the rope-free forward's variants only
 
 Phases, in order; any failure exits non-zero:
   1. device: CUDA is required; prints the card's name and power limit.
@@ -68,12 +69,18 @@ shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
 the 1024^2 lengths, and the rope-free backward at train_blocks' shapes and
 SD3's; plain versions past ~2 GB of fp32 logits run in head chunks. It
 imports neither JAX nor the JAX package.
+
+--schedules runs phases 1-2 and then only the timing of the rope-free
+forward's D=64 variants (ring depths, FlashAttention-3's overlap; a
+timing-only library, csrc/timing/flash_attention_schedules.cu, that the
+port never builds) against the production kernel at SD3's shapes.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -81,6 +88,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12        # H100 SXM dense int8 tensor-core peak
@@ -105,6 +113,11 @@ NOROPE_CASES = [
     (2, 24, 8525, 8525, 64)]   # 1024^2: weave_text
 ROPE_LONG_CASES = [       # kernel 1 at FLUX's 1024^2 lengths (b=1)
     (1, 24, 4608, 4608, 0), (1, 24, 8192, 8192, 0), (1, 24, 8704, 8704, 0)]
+# --schedules: the timing-only library of the rope-free forward's D=64
+# variants (10 x ring stages + overlap), timed at these SD3 shapes
+SCHEDULES_KERNEL = "timing/flash_attention_schedules"
+FWD_SCHEDULES = (20, 30, 40, 21, 31, 41)
+SCHEDULE_CASES = [NOROPE_CASES[0], NOROPE_CASES[2], NOROPE_CASES[3], NOROPE_CASES[-1]]
 HIRES, HIRES_STEPS = 1024, 4
 LOGITS_BUDGET = 2 ** 31   # bytes of fp32 logits a plain call may hold at once
 SEQ_TXT, HW = 512, 32     # 512^2 image -> 64^2 latents -> 32^2 = 1024 tokens
@@ -127,6 +140,10 @@ NOROPE_BWD_CASES = [
 FLUX_FULL_TRAINABLE = 145_202_432
 FLUX_FULL_BLOCKS_TRAINABLE = 1_702_672_640
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
+# 65536 registers / 384 threads, rounded down to the allocation unit of 8:
+# the register count at entry of the setmaxnreg kernels (24 x 128 + 240 x 256
+# = 168 x 384)
+SETMAXNREG_REGISTERS = 168
 NOROPE_BWD_NAMES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
@@ -433,16 +450,20 @@ def kernel_name(mangled):
 
 def ptxas_line(build, names):
     """Registers, spills, stack and static shared memory of every kernel in
-    the build logs of ``names`` (nvcc -Xptxas -v), and ptxas's warnings."""
+    the build logs of ``names`` (nvcc -Xptxas -v), and ptxas's warnings;
+    returns the kernels' entries by name (with the dtype and the integer
+    template arguments: head dim, ring stages)."""
     out, warnings = {}, []
     for name in names:
         log = build._target(name).with_suffix(".log").read_text()
         for m in re.finditer(r"Compiling entry function '(\w+)'(.*?)Used (\d+) registers"
                              r"([^\n]*)", log, re.S):
             mangled, body, regs, tail = m.groups()
-            key = kernel_name(mangled) + (
-                "<float>" if "IfE" in mangled else
-                "<bf16>" if "bfloat16" in mangled else "")
+            args = ["float" if "IfE" in mangled or "IfL" in mangled else
+                    "bf16" if "bfloat16" in mangled else None]
+            args += re.findall(r"L[ib](\d+)E", mangled)
+            args = [a for a in args if a]
+            key = kernel_name(mangled) + (f"<{','.join(args)}>" if args else "")
             spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                               r"(\d+) bytes spill loads", body)
             smem = re.search(r"(\d+) bytes smem", tail)
@@ -453,6 +474,160 @@ def ptxas_line(build, names):
                             static_smem=int(smem.group(1)) if smem else 0)
         warnings += [line.strip() for line in log.splitlines() if "warning" in line]
     emit(dict(phase="ptxas", kernels=out, warnings=warnings))
+    return out
+
+
+def check_setmaxnreg(kernels):
+    """Every attention kernel runs 384 threads and moves registers with
+    setmaxnreg (24 for the producer, 240 for the consumers): it must enter
+    with exactly SETMAXNREG_REGISTERS registers a thread, or
+    setmaxnreg.inc waits forever and the launch hangs the card. Stop before
+    launching anything otherwise."""
+    bad = {k: v["registers"] for k, v in kernels.items()
+           if k.startswith("flash") and v["registers"] != SETMAXNREG_REGISTERS}
+    if bad or not any(k.startswith("flash") for k in kernels):
+        raise SystemExit(f"setmaxnreg kernels built with other than "
+                         f"{SETMAXNREG_REGISTERS} registers (they would hang): {bad}")
+
+
+def changed_bits(torch, dev, pfa, fa, seed=0):
+    """The RoPE forward (out, lse) and backward (dq, dk, dv) through the
+    parent's wrappers and kernels (``pfa``) and through this tree's (``fa``)
+    on the same inputs, drawn from ``seed``, at phase 3's shapes (bf16, b = 1
+    and 2 for the backward, and fp32 at the first shape): the outputs whose
+    bits differ, and how many were compared. None differ when kernel 1 and
+    5r/6r keep their bits on the shared cores."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ids(n):
+        r = torch.arange(n, device=dev)
+        return torch.stack([torch.zeros_like(r), r // HW, r % HW], -1).float()
+    changed, compared = [], 0
+    cases = [(c, "bfloat16", 1) for c in ATTN_CASES + ROPE_LONG_CASES] + [
+        (c, "bfloat16", 2) for c in ATTN_CASES] + [(ATTN_CASES[0], "float32", 1)]
+    for (b, h, sq, skv, ident), dtype, mult in cases:
+        tabs = attention_tables(torch, dev, ids, sq, skv, ident)
+        q, k, v, do = (torch.randn(b * mult, h, s, fa.HEAD_DIM, device=dev, generator=g)
+                       .to(getattr(torch, dtype)) for s in (sq, skv, skv, sq))
+        outs = []
+        for mod in (pfa, fa):
+            o, lse = mod.flash_attention_rope_fwd(q, k, v, *tabs, with_lse=True)
+            grads = (mod.flash_attention_rope_bwd(q, k, v, o, lse, do, *tabs)
+                     if skv <= 2560 else ())
+            outs.append((o, lse) + tuple(grads))
+        names = ("out", "lse", "dq", "dk", "dv")
+        for name, x, y in zip(names, *outs):
+            compared += 1
+            if not torch.equal(x, y):
+                changed.append(f"{b * mult}x{h}x{sq}x{skv}x{ident} {dtype} {name}")
+    return changed, compared
+
+
+def parent_phase(parent, seed):
+    """Phase 3 of the parent commit's chip_smoke.py, from a checkout at
+    ``parent`` (its kernels built there), run on the same card before this
+    tree's, in a process of its own. -> the parent's rows"""
+    code = "\n".join([
+        "import torch",
+        "import chip_smoke as parent",
+        "from unigen_tpu_torch.ops.cuda import build, flash_attention as fa, quant_matmul as qm",
+        "build.build_all([fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,",
+        "                 fa.KERNEL_NOROPE_BWD, qm.KERNEL])",
+        "torch.backends.cuda.matmul.allow_tf32 = False",
+        "torch.backends.cudnn.allow_tf32 = False",
+        f"parent.phase_kernels(torch, torch.device('cuda', 0), {seed})"])
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"parent phase 3 failed ({proc.returncode}): "
+                         f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith('{"kernel"')]
+    print(f"# parent: phase 3 of {parent} in {time.time() - t0:.1f}s, {len(rows)} rows",
+          flush=True)
+    return rows
+
+
+def load_parent_attention(parent):
+    """The parent commit's attention wrappers (``ops/cuda/flash_attention.py``
+    of the checkout at ``parent``), loaded beside this tree's under other
+    module names, with its own build module: its kernels are built from its
+    csrc into its build directory."""
+    import importlib.util
+    root = Path(parent).resolve() / "unigen_tpu_torch" / "ops" / "cuda"
+    mods = {}
+    for name in ("build", "flash_attention"):
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", root / f"{name}.py")
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    mods["flash_attention"].build = mods["build"]
+    return mods["flash_attention"]
+
+
+def host_bound_ab(torch, dev, pfa, rounds=4):
+    """The attention calls that host work bounds (a FLUX block expert's
+    backward at 171 keys, an SD3 block expert's forward at 683), with the
+    parent's wrappers and kernels and with this tree's in one process, in
+    turns (parent, this, this, parent) x ``rounds``, CUDA-event medians of 25
+    calls each: on one input set (this tree's tensor maps then come from its
+    host cache) and on 48 input sets cycled (every call encodes its maps)."""
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, (b, h, s, d) in (("flash_attention_bwd", (1, 24, 171, 128)),
+                               ("flash_attention", (1, 24, 683, 64))):
+        pool = []
+        for _ in range(48):
+            q, k, v, do = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
+                           for _ in range(4))
+            pool.append((q, k, v, do, *fa.flash_attention_fwd(q, k, v, with_lse=True)))
+
+        def call(mod, q, k, v, do, o, lse):
+            if name == "flash_attention":
+                return mod.flash_attention_fwd(q, k, v)
+            return mod.flash_attention_bwd(q, k, v, o, lse, do)
+        for inputs in (pool[:1], pool):
+            ring = itertools.cycle(inputs)
+            t = {"parent": [], "this": []}
+            for _ in range(rounds):
+                for side in ("parent", "this", "this", "parent"):
+                    mod = pfa if side == "parent" else fa
+                    t[side].append(median_ms(lambda: call(mod, *next(ring))))
+            rec = dict(phase="host_bound_ab", kernel=name, b=b, h=h, sq=s, skv=s, d=d,
+                       input_sets=len(inputs),
+                       parent_ms=statistics.median(t["parent"]),
+                       ms=statistics.median(t["this"]), runs=t)
+            rec["ratio"] = rec["ms"] / rec["parent_ms"]
+            emit(rec)
+            out.append(rec)
+    return out
+
+
+ROW_KEYS = ("kernel", "b", "h", "sq", "skv", "d", "dtype", "identity_rows", "m", "k",
+            "n", "direction", "shapes")
+
+
+def same_run(rows, parent_rows):
+    """Each row of this run's phase 3 beside the parent's row of the same
+    kernel and shape: event ms (and device ms where both have it) and the
+    parent-over-this ratio, emitted as one line."""
+    def key(r):
+        return tuple(str(r.get(k)) for k in ROW_KEYS)
+    parent = {key(r): r for r in parent_rows}
+    out = []
+    for r in (r for rs in rows.values() for r in rs):
+        p = parent.get(key(r))
+        if p is None or not isinstance(r.get("ms"), float):
+            continue
+        rec = {k: r[k] for k in ROW_KEYS if k in r}
+        rec.update(ms=r["ms"], parent_ms=p["ms"], speedup=p["ms"] / r["ms"])
+        if r.get("device_ms") and p.get("device_ms"):
+            rec.update(device_ms=r["device_ms"], parent_device_ms=p["device_ms"],
+                       device_speedup=p["device_ms"] / r["device_ms"])
+        out.append(rec)
+    emit(dict(phase="same_run", rows=out))
+    return out
 
 
 def phase_kernels(torch, dev, seed):
@@ -532,6 +707,9 @@ def phase_kernels(torch, dev, seed):
                    plain_ms=median_ms(lambda: chunked(fa.flash_attention_ref, q, k, v),
                                       *((5, 1) if long else ())),
                    library_ms=median_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+                   device_ms=device_ms(torch, lambda: fa.flash_attention(q, k, v)),
+                   library_device_ms=device_ms(
+                       torch, lambda: F.scaled_dot_product_attention(q, k, v)),
                    bound_ms=bms, bound_by=by)
         emit(row)
         rows["flash_attention"].append(row)
@@ -565,6 +743,56 @@ def phase_kernels(torch, dev, seed):
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+def phase_schedules(torch, dev, build, fa, seed):
+    """--schedules: the rope-free forward's D=64 variants of the timing-only
+    library (``csrc/timing/flash_attention_schedules.cu``: 10 x ring stages
+    + 1 where tile t's S product is issued with tile t-1's P V and the
+    softmax runs under it) at SCHEDULE_CASES, each held against the plain
+    version (atol=rtol=1e-2) and timed by CUDA events in turns with the
+    production kernel ("0", through its C entry) on the same inputs, from
+    one preallocated output. -> rows"""
+    import ctypes
+    fn = build.load(SCHEDULES_KERNEL).flash_attention_schedule
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    prod = fa._entry("flash_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for b, h, sq, skv, d in SCHEDULE_CASES:
+        q, k, v = (torch.randn(b, h, s, d, device=dev, generator=g).bfloat16()
+                   for s in (sq, skv, skv))
+        ref = chunked(fa.flash_attention_ref, q, k, v).float()
+        out = torch.empty_like(q)
+        scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+
+        def launch(sched):
+            if sched == 0:
+                err = prod(*ptrs, None, None, out.data_ptr(), None, b * h, sq, skv, d,
+                           scale_log2, 0, stream)
+            else:
+                err = fn(*ptrs, out.data_ptr(), b * h, sq, skv, sched, scale_log2, stream)
+            build.check(err, SCHEDULES_KERNEL)
+        ms, errs, ok = {}, {}, True
+        for sched in (0,) + FWD_SCHEDULES + (0,):
+            launch(sched)
+            torch.cuda.synchronize()
+            errs[sched] = (out.float() - ref).abs().max().item()
+            ok &= torch.allclose(out.float(), ref, atol=1e-2, rtol=1e-2)
+            ms.setdefault(sched, []).append(median_ms(lambda: launch(sched)))
+        bms, by = bound(4.0 * b * h * sq * skv * d, BF16_FLOPS,
+                        2.0 * (2 * b * h * sq * d + 2 * b * h * skv * d))
+        row = dict(kernel="flash_attention_schedules", b=b, h=h, sq=sq, skv=skv, d=d,
+                   ok=ok, max_abs_err=max(errs.values()), errors=errs,
+                   ms={str(n): min(t) for n, t in ms.items()}, bound_ms=bms,
+                   bound_by=by)
+        emit(row)
+        rows.append(row)
     return rows
 
 
@@ -702,8 +930,10 @@ def backward_rows(torch, dev, g, ids):
 
 def norope_backward_rows(torch, dev, g):
     """Rows 5p/6p: the rope-free backward at NOROPE_BWD_CASES, checked as
-    backward_rows checks the RoPE one and timed by time_backward (fp32
-    inputs and outputs counted at 4 bytes)."""
+    backward_rows checks the RoPE one and timed by time_backward (the whole
+    backward with its rounding pass for fp32 inputs; each kernel alone on
+    operands the pass rounded before; fp32 inputs and outputs counted at 4
+    bytes)."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     rows = {"flash_attention_bwd": [], NOROPE_BWD_NAMES[0]: [], NOROPE_BWD_NAMES[1]: []}
     for b, h, sq, skv, d, dtype in NOROPE_BWD_CASES:
@@ -719,7 +949,7 @@ def norope_backward_rows(torch, dev, g):
         row = dict(kernel="flash_attention_bwd", **shape, errors=errs,
                    max_abs_err=max(e["max_abs_err"] for e in errs.values()), ok=ok)
         drow = (do.float() * out.float()).sum(-1)
-        kargs = (q, k, v, do, lse, drow)
+        kargs = (q, k, v, do, lse, drow, fa._norope_bwd_operands(q, k, v, do))
         leaves = tuple(x.clone().requires_grad_() for x in (q, k, v))
 
         def parts():
@@ -824,14 +1054,16 @@ def expected_sd3_launches(cfg, batch: int = 1) -> int:
     return 2 * bb.num_layers + dual + experts + (3 if cc.use_shared_expert else 0)
 
 
-def expected_launches(params, cfg, batch: int = 1):
+def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
     """Kernel launches of one UniGen-FLUX forward at ``batch``, by kernel:
     the attention sites (the base blocks with rope; the control blocks and
     the shared-expert weave with rope under ``use_rope``, rope-free
     otherwise; with block experts, two rope-free calls per expert and
     condition, per sample under per-sample routing), and the W4A8 linear
     calls counted from the tree (a stacked leaf is used once per
-    application of its stack); one rotation pass per RoPE attention call."""
+    application of its stack); one rotation pass per RoPE attention call,
+    and with ``fp32`` activations one (rounding k and v) per rope-free
+    call."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
     uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers}
@@ -846,18 +1078,20 @@ def expected_launches(params, cfg, batch: int = 1):
         if cc.moe.batch_mode == "per_sample":
             experts *= batch
     rope = bb.num_layers + bb.num_single_layers + (control if cc.use_rope else 0)
-    return {"flash_attention_rope": rope, "rope_rotate": rope,
-            "flash_attention": (0 if cc.use_rope else control) + experts,
-            "w4a8_matmul": w4}
+    norope = (0 if cc.use_rope else control) + experts
+    return {"flash_attention_rope": rope, "rope_rotate": rope + (norope if fp32 else 0),
+            "flash_attention": norope, "w4a8_matmul": w4}
 
 
-def expected_train_launches(params, cfg, batch: int = 1):
+def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
     """Kernel launches of one training micro-step at ``batch`` with remat
     "full" and a frozen base: every forward call of expected_launches, plus
     the forward that each remat body (base + control double block i >= 1,
     base + control single block) runs again in the backward; one backward
     per attention call except base double block 0, which sees no trainable
-    input; one rotation pass per RoPE forward and per RoPE backward."""
+    input; one rotation pass per RoPE forward and per RoPE backward, and
+    with ``fp32`` activations also one per rope-free forward and per
+    rope-free backward (the rounding of their operands)."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb, cc = cfg.flux, cfg.control
     per = expected_launches(params, cfg, batch)
@@ -869,9 +1103,11 @@ def expected_train_launches(params, cfg, batch: int = 1):
                    if path[-1] == "w_q4")
     rope, norope = per["flash_attention_rope"], per["flash_attention"]
     rope_fwd = rope + base_again + (ctrl_again if cc.use_rope else 0)
-    return {"flash_attention_rope": rope_fwd, "rope_rotate": rope_fwd + rope - 1,
+    norope_fwd = norope + (0 if cc.use_rope else ctrl_again)
+    return {"flash_attention_rope": rope_fwd,
+            "rope_rotate": rope_fwd + rope - 1 + (norope_fwd + norope if fp32 else 0),
             BWD_NAMES[0]: rope - 1, BWD_NAMES[1]: rope - 1,
-            "flash_attention": norope + (0 if cc.use_rope else ctrl_again),
+            "flash_attention": norope_fwd,
             NOROPE_BWD_NAMES[0]: norope, NOROPE_BWD_NAMES[1]: norope,
             "w4a8_matmul": per["w4a8_matmul"] + w4_again}
 
@@ -1185,7 +1421,8 @@ def phase_trainer(torch, dev, params, seed):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = nonzero(launch_counts())
     want = {k: n * TRAINER_STEPS
-            for k, n in nonzero(expected_train_launches(params, cfg, BATCH)).items()}
+            for k, n in nonzero(expected_train_launches(params, cfg, BATCH,
+                                                        fp32=True)).items()}
     dtypes = sorted({str(t.dtype) for t in tree_leaves(trainer.state.control)})
     emit(dict(phase="trainer", steps=TRAINER_STEPS, micro_batch=BATCH,
               accumulation=TRAIN_ACCUM, trainable_dtypes=dtypes,
@@ -1411,6 +1648,17 @@ def main() -> int:
                                      "port on one NVIDIA card")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the kernel inputs and the training data")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a checkout of the parent commit: its phase 3 runs first "
+                             "on the same card, each phase-3 row is shown beside the "
+                             "parent's (the same_run line), the RoPE kernels' "
+                             "outputs must keep their bits (same_bits), and the host-bound "
+                             "attention calls are timed against the parent's in one "
+                             "process (host_bound_ab lines)")
+    parser.add_argument("--schedules", action="store_true",
+                        help="only time the rope-free forward's D=64 variants "
+                             "(csrc/timing/flash_attention_schedules.cu) against "
+                             "the production kernel, then stop")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1435,6 +1683,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
+    if args.schedules:
+        build.build_all([fa.KERNEL_NOROPE, SCHEDULES_KERNEL])
+        check_setmaxnreg(ptxas_line(build, [fa.KERNEL_NOROPE, SCHEDULES_KERNEL]))
+        bad = [r for r in phase_schedules(torch, dev, build, fa, args.seed) if not r["ok"]]
+        if bad:
+            raise SystemExit(f"a schedule disagrees with the plain version: {bad}")
+        return 0
     logs = build.build_all([fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
                             fa.KERNEL_NOROPE_BWD, qm.KERNEL])
     print(f"# build: {time.time() - t0:.1f}s from {build.CSRC}", flush=True)
@@ -1442,10 +1697,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
-    ptxas_line(build, [fa.KERNEL, fa.KERNEL_BWD])
+    check_setmaxnreg(ptxas_line(build, [fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
+                                        fa.KERNEL_NOROPE_BWD]))
 
-    # 3. kernels at the main paths' shapes
+    # 3. kernels at the main paths' shapes (the parent's first, with --parent)
+    parent = parent_phase(args.parent, args.seed) if args.parent else None
     rows = phase_kernels(torch, dev, args.seed)
+    if parent:
+        same_run(rows, parent)
+        pfa = load_parent_attention(args.parent)
+        changed, compared = changed_bits(torch, dev, pfa, fa)
+        emit(dict(phase="same_bits", outputs=compared, changed=changed))
+        if changed:
+            raise SystemExit(f"the RoPE kernels' outputs changed bits: {changed}")
+        host_bound_ab(torch, dev, pfa)
 
     # 4. the serving slice
     params, serving = phase_slice(torch, dev)

@@ -178,7 +178,9 @@ def test_attention_autograd_runs_kernels_on_card(card):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,h,sq,skv,d", [
     (1, 3, 200, 333, 64), (2, 2, 1357, 1357, 64), (1, 4, 683, 683, 64),
-    (1, 3, 200, 333, 128), (1, 2, 130, 257, 128), (1, 1, 1, 1, 64)])
+    (1, 3, 200, 333, 128), (1, 2, 130, 257, 128), (1, 1, 1, 1, 64),
+    (1, 2, 40, 129, 64), (1, 2, 63, 257, 64), (1, 2, 40, 129, 128),
+    (1, 2, 63, 257, 128)])
 def test_rope_free_kernel_matches_plain_on_card(card, b, h, sq, skv, d, dtype):
     """Ragged lengths (the KV tail masked, Q rows past Sq never stored) at
     both head dims, within atol=rtol=1e-2 of the plain version in the same
@@ -223,7 +225,9 @@ def test_long_kv_kernels_match_plain_on_card(card):
     (1, 3, 200, 300, 64, torch.bfloat16), (1, 3, 200, 300, 128, torch.bfloat16),
     (1, 3, 200, 300, 128, torch.float32), (1, 2, 1, 1, 64, torch.bfloat16),
     (1, 2, 1, 1, 128, torch.float32), (2, 4, 1536, 1536, 128, torch.bfloat16),
-    (1, 4, 1357, 1357, 64, torch.bfloat16)])
+    (1, 4, 1357, 1357, 64, torch.bfloat16), (1, 2, 40, 129, 64, torch.bfloat16),
+    (1, 2, 63, 257, 64, torch.float32), (1, 2, 40, 257, 128, torch.bfloat16),
+    (1, 2, 63, 129, 128, torch.float32)])
 def test_rope_free_backward_kernels_match_plain_on_card(card, b, h, sq, skv, d, dtype):
     """Rows 5p/6p: dq, dk, dv within 2e-2 of each one's largest |value| and
     1e-2 relative L2 of the fp32 plain backward at ragged lengths (a FLUX
@@ -277,3 +281,72 @@ def test_rope_free_autograd_runs_kernels_on_card(card):
         assert sdpa(*leaves).shape == leaves[0].shape
     assert t_fa.norope_launches == before[0] + 2
     assert t_fa.norope_dq_launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_free_backward_deterministic_on_card(card, d, dtype):
+    """Two rope-free backward runs on the same inputs give the same bits:
+    the dQ and dK/dV kernels own their outputs and use no atomics."""
+    g = torch.Generator(device=card).manual_seed(10)
+    q, k, v, do = (torch.randn(1, 4, s, d, device=card, generator=g).to(dtype)
+                   for s in (1357, 1500, 1500, 1357))
+    out, lse = t_fa.flash_attention_fwd(q, k, v, with_lse=True)
+    first = t_fa.flash_attention_bwd(q, k, v, out, lse, do)
+    second = t_fa.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_rope_free_calls_count_one_rounding_pass_on_card(card, d):
+    """fp32 inputs: the rope-free forward rounds k and v, the backward q, k,
+    v and dO, each in one launch of the rounding pass (rotate_launches);
+    bf16 inputs launch none."""
+    g = torch.Generator(device=card).manual_seed(11)
+    for dtype, passes in ((torch.float32, 1), (torch.bfloat16, 0)):
+        q, k, v, do = (torch.randn(1, 2, s, d, device=card, generator=g).to(dtype)
+                       for s in (96, 171, 171, 96))
+        before = t_fa.rotate_launches
+        out, lse = t_fa.flash_attention_fwd(q, k, v, with_lse=True)
+        assert t_fa.rotate_launches == before + passes
+        t_fa.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        assert t_fa.rotate_launches == before + 2 * passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_misaligned_operand_raises_on_card(card, monkeypatch, which):
+    """A bf16 operand that does not start on a 16-byte boundary (a view
+    offset by one element) cannot be read by TMA: the rope-free forward and
+    backward and the RoPE forward raise ValueError before any launch, and
+    never take a plain version instead."""
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    for name in ("flash_attention_ref", "flash_attention_bwd_ref",
+                 "flash_attention_rope_ref", "flash_attention_rope_bwd_ref"):
+        monkeypatch.setattr(t_fa, name, refused)
+    g = torch.Generator(device=card).manual_seed(12)
+    x = dict(zip("q k v do".split(), (
+        torch.randn(1, 2, 64, 128, device=card, generator=g).bfloat16() for _ in range(4))))
+    flat = torch.empty(x[which].numel() + 1, dtype=torch.bfloat16, device=card)
+    x[which] = flat[1:].view(x[which].shape).copy_(x[which])
+    assert x[which].is_contiguous() and x[which].data_ptr() % 16
+    before = (t_fa.norope_launches, t_fa.norope_dq_launches, t_fa.launches,
+              t_fa.rotate_launches)
+    if which != "do":
+        with pytest.raises(ValueError, match="16-byte"):
+            t_fa.flash_attention_fwd(x["q"], x["k"], x["v"])
+        tabs = _tables(64, 64, 0, card)
+        with pytest.raises(ValueError, match="16-byte"):
+            t_fa.flash_attention_rope_fwd(x["q"], x["k"], x["v"], *tabs)
+    out = torch.zeros_like(x["do"])
+    lse = torch.zeros(1, 2, 64, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        t_fa.flash_attention_bwd(x["q"], x["k"], x["v"], out, lse, x["do"])
+    assert (t_fa.norope_launches, t_fa.norope_dq_launches, t_fa.launches,
+            t_fa.rotate_launches) == before

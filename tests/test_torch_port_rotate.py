@@ -4,7 +4,9 @@ the JAX package's ``apply_rotary`` cast to bf16 (the operand that
 flash_attention.py:330-333), and the launch counters and formulas of
 chip_smoke.py that count it (one pass per RoPE forward and per RoPE
 backward call). The kernel itself is tested on the card by
-tests/test_torch_port_cuda.py."""
+tests/test_torch_port_cuda.py. The same pass rounds the rope-free kernels'
+fp32 operands (rounding jobs, head dim 64 or 128; one launch per fp32
+rope-free call)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,19 @@ def test_rotation_plain_version_matches_jax_apply_rotary(dtype):
     assert torch.equal(plain, tx.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rounding_job_plain_version_at_head_dim_64(dtype):
+    """A rounding job (no tables) at SD3's head dim 64 and a ragged length:
+    x rounded to bf16, bit for bit, and no launch on CPU tensors."""
+    x = torch.from_numpy(normal(np.random.default_rng(12), 2, 3, 37, 64)).to(dtype)
+    before = t_fa.rotate_launches
+    (got,) = t_fa.rope_rotate([(x, None, None)])
+    assert t_fa.rotate_launches == before
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, x.to(torch.bfloat16))
+    assert torch.equal(t_fa.rope_rotate_ref(x), x.to(torch.bfloat16))
+
+
 def test_launch_counts_include_the_rotation_pass(monkeypatch):
     """launch_counts reports the rotation pass's counter and
     reset_launch_counts clears it with the others."""
@@ -74,3 +89,24 @@ def test_launch_formulas_count_one_rotation_per_rope_call(control):
     assert train["rope_rotate"] == (train["flash_attention_rope"]
                                     + train["flash_attention_rope_bwd_dq"])
     assert train["flash_attention_rope_bwd_dq"] == fwd["flash_attention_rope"] - 1
+
+
+@pytest.mark.parametrize("control", ["rope", "blocks"])
+def test_launch_formulas_count_one_rounding_pass_per_fp32_rope_free_call(control):
+    """With fp32 activations each rope-free forward (recomputed ones
+    included) and each rope-free backward also launches the rounding pass
+    once: both formulas add exactly those calls to the RoPE calls' passes,
+    and bf16 activations add none."""
+    cfg = t_presets.flux_full()
+    if control == "blocks":
+        cfg = chip_smoke.shipped_control(cfg)
+    params = init_quantized_serving_params(cfg, device="meta")
+    fwd, fwd32 = (chip_smoke.expected_launches(params, cfg, 2, fp32=f) for f in (False, True))
+    assert fwd32["rope_rotate"] == fwd["rope_rotate"] + fwd["flash_attention"]
+    assert {k: n for k, n in fwd32.items() if k != "rope_rotate"} == {
+        k: n for k, n in fwd.items() if k != "rope_rotate"}
+    train, train32 = (chip_smoke.expected_train_launches(params, cfg, 2, fp32=f)
+                      for f in (False, True))
+    assert train32["rope_rotate"] == (train["rope_rotate"] + train["flash_attention"]
+                                      + train["flash_attention_bwd_dq"])
+    assert (train32["rope_rotate"] > train["rope_rotate"]) == (control == "blocks")

@@ -1,14 +1,16 @@
-// Hopper (sm_90a) building blocks of the RoPE attention kernels
-// (flash_attention_rope.cu, flash_attention_rope_bwd.cu): mbarriers, TMA
-// tile loads through 3-D tensor maps, wgmma on 128-byte swizzled shared
-// tiles, and the host-side tensor map encoding.
+// Hopper (sm_90a) building blocks of the attention kernels (the cores in
+// attention_fwd.cuh and attention_bwd.cuh): mbarriers, TMA tile loads
+// through 3-D tensor maps, wgmma on 128-byte swizzled shared tiles, and the
+// host-side tensor map encoding.
 //
-// Shared tiles. A tile of R rows x 128 bf16 columns is two 64-column
-// "halves" of R x 128 bytes each (half h at byte h * R * 128), each filled
-// by one TMA box with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of
-// row r lies at r * 128 + ((c ^ (r % 8)) * 16). Every tile starts on a
-// 1024-byte boundary, so the swizzle (address bits 4-6 xor bits 7-9) is the
-// same whether TMA, wgmma or store_swizzled addresses the tile.
+// Shared tiles. A tile of R rows x HD bf16 columns (HD = 64 or 128) is
+// HD / 64 64-column "halves" of R x 128 bytes each (half h at byte
+// h * R * 128), each filled by one TMA box with CU_TENSOR_MAP_SWIZZLE_128B:
+// the 16-byte chunk c of row r lies at r * 128 + ((c ^ (r % 8)) * 16).
+// Every tile starts on a 1024-byte boundary, so the swizzle (address bits
+// 4-6 xor bits 7-9) is the same whether TMA, wgmma or store_swizzled
+// addresses the tile. At HD = 64 a tile is a single half: K-major k-steps
+// all fall in half 0, and an MN-major operand of 64 columns uses no LBO.
 //
 // wgmma descriptors on such a tile (desc()):
 //   K-major operand (the product runs along the 128 columns, e.g. Q and K
@@ -27,9 +29,13 @@
 //   accumulator of a product over 16 columns packs into the A fragment of
 //   the next product without shuffles.
 //
-// Tensor maps are encoded on the host per call through the driver entry
-// point cuTensorMapEncodeTiled, fetched with the runtime's
-// cudaGetDriverEntryPoint(ByVersion), so the libraries link no -lcuda.
+// Tensor maps are encoded on the host through the driver entry point
+// cuTensorMapEncodeTiled, fetched with the runtime's
+// cudaGetDriverEntryPoint(ByVersion), so the libraries link no -lcuda. An
+// encoding costs microseconds of host time, as much as a whole call at the
+// block experts' lengths, so each host thread keeps its last maps (a map is
+// a pure function of its key); the shared memory attribute is likewise set
+// once per kernel and device.
 
 #pragma once
 
@@ -114,15 +120,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Both 64-column halves of rows [row, row + rows) of head bh into a tile.
+// Every 64-column half of rows [row, row + rows) of head bh into a tile of
+// HD columns.
+template <int HD = 128>
 __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int row, int bh) {
-  tma_load_3d(dst, map, bar, 0, row, bh);
-  tma_load_3d(dst + rows * 128, map, bar, 64, row, bh);
+#pragma unroll
+  for (int h = 0; h < HD / 64; ++h)
+    tma_load_3d(dst + h * rows * 128, map, bar, 64 * h, row, bh);
 }
 
-// Store 16 bytes as chunk `chunk` (0..15) of row r of a swizzled tile of R
-// rows (the layout TMA writes).
+// Store 16 bytes as chunk `chunk` (0..HD/8-1) of row r of a swizzled tile
+// of R rows (the layout TMA writes).
 __device__ __forceinline__ void store_swizzled(unsigned char* tile, int R, int r,
                                                int chunk, uint4 v) {
   const int half = chunk >> 3, c = chunk & 7;
@@ -265,6 +274,33 @@ __device__ __forceinline__ void mma_n128_rs_mn(float (&d)[64], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers, B MN-major in
+// shared memory (one 64-column half: no LBO).
+__device__ __forceinline__ void mma_n64_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x HD] (+)= A[64 x 16] B[16 x HD] for HD = 64 or 128: A in registers,
+// B MN-major (k-step kk of a tile of R rows).
+template <int HD>
+__device__ __forceinline__ void mma_rs_mn(float (&d)[HD / 2], const uint32_t (&a)[4],
+                                          uint32_t tile, int R, int kk) {
+  if constexpr (HD == 128) mma_n128_rs_mn(d, a, desc_mn(tile, R, kk), 1);
+  else mma_n64_rs_mn(d, a, desc_mn(tile, R, kk), 1);
+}
+
 // ---------------------------------------------------------- host: tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -293,21 +329,68 @@ inline EncodeTiledFn encode_tiled() {
 constexpr int ERR_NO_ENCODE = 90001;   // driver has no cuTensorMapEncodeTiled
 constexpr int ERR_ENCODE = 90002;      // the driver refused a tensor map
 
-// Map of a bf16 [BH, S, 128] tensor: boxes of `box_rows` rows x 64 columns
-// of one head, 128-byte swizzle. Rows past S read as zeros (never the next
-// head's rows).
-inline int rows_map(CUtensorMap* map, const void* base, int BH, int S, int box_rows) {
+struct MapKey {
+  const void* base;
+  int BH, S, box_rows, d;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && BH == o.BH && S == o.S && box_rows == o.box_rows && d == o.d;
+  }
+};
+constexpr int MAP_CACHE = 32;     // maps kept per host thread
+
+// Map of a bf16 [BH, S, d] tensor (d = 64 or 128): boxes of `box_rows` rows
+// x 64 columns of one head, 128-byte swizzle. Rows past S read as zeros
+// (never the next head's rows).
+inline int rows_map(CUtensorMap* map, const void* base, int BH, int S, int box_rows,
+                    int d = 128) {
+  thread_local MapKey keys[MAP_CACHE] = {};
+  thread_local CUtensorMap maps[MAP_CACHE];
+  thread_local int next = 0;
+  const MapKey key{base, BH, S, box_rows, d};
+  for (int i = 0; i < MAP_CACHE; ++i) {
+    if (keys[i] == key) {
+      *map = maps[i];
+      return 0;
+    }
+  }
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[3] = {128, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)S * 128 * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+  if (r != CUDA_SUCCESS) return ERR_ENCODE;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % MAP_CACHE;
+  return 0;
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes), once per
+// kernel and device in each host thread.
+inline cudaError_t max_smem(const void* kernel, int bytes) {
+  constexpr int N = 64;
+  thread_local const void* done[N] = {};
+  thread_local int dev_of[N];
+  thread_local int n = 0;
+  int dev = 0;
+  const cudaError_t g = cudaGetDevice(&dev);
+  if (g != cudaSuccess) return g;
+  for (int i = 0; i < n; ++i) {
+    if (done[i] == kernel && dev_of[i] == dev) return cudaSuccess;
+  }
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && n < N) {
+    done[n] = kernel;
+    dev_of[n] = dev;
+    ++n;
+  }
+  return e;
 }
 
 }  // namespace hop

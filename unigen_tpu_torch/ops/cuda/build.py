@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each ``unigen_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the repository root,
-a shared library with a plain C interface. The hash covers the source, the
+(``sm_90a``) into ``build/kernels/<base name>-<hash>.so`` at the repository
+root, a shared library with a plain C interface (``name`` may lie in a
+subdirectory, as the timing-only ``timing/flash_attention_schedules``). The hash covers the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
 rebuilds and an unchanged one loads from disk.
 ``build_all`` starts one ``nvcc`` per source together and waits for all.
@@ -41,7 +42,7 @@ def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{Path(name).name}-{digest}.so"
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:

@@ -20,13 +20,20 @@ Replaces ``unigen_tpu/ops/pallas/flash_attention.py``:
   launch per call, counted apart): the TPU kernel rotates K once per head
   in VMEM; on the card the rotated K (and, for the backward, Q), and the
   bf16 rounding of fp32 V and dO, go to bf16 buffers that the attention
-  kernels read by TMA.
+  kernels read by TMA. The rope-free kernels run the same pass, as rounding
+  jobs only, where their inputs are fp32 (one launch per call, counted in
+  ``rotate_launches`` too).
 - ``flash_attention`` -> ``_attn_kernel`` (and, past 2560 keys,
   ``flash_attention_streaming`` -> ``_stream_kernel``): the same attention
   without rotary, at head dim 64 (SD3) or 128, any Sq and Skv, and its VJP
   ``_flash_bwd`` / ``_flash_stream_bwd`` -> ``_attn_bwd_kernel`` or the
   kv-blocked ``_lse_kernel``/``_dq_blk_kernel``/``_dkv_blk_kernel``: the
-  RoPE backward's dQ and dK/dV kernels without the rotation.
+  RoPE kernels' Hopper cores (``csrc/attention_fwd.cuh``,
+  ``csrc/attention_bwd.cuh``) without the rotation.
+
+Every attention kernel reads its bf16 operands by TMA, so they must start
+on a 16-byte boundary (``_tma_ready`` raises otherwise; fp32 operands, read
+with 16-byte loads by the rounding pass or the forward's prologue, too).
 
 On the card one online-softmax kernel walks KV in tiles at any length, so
 each TPU pair (full-KV and streaming) has one kernel here.
@@ -60,7 +67,7 @@ HEAD_DIM = 128                  # the RoPE kernels
 HEAD_DIMS_NOROPE = (64, 128)    # the rope-free kernels
 # kernel launches, counted by the wrappers; reset by callers
 launches = 0              # RoPE forward
-rotate_launches = 0       # rotation pass (one per RoPE forward or backward)
+rotate_launches = 0       # rotation pass (one per RoPE call; one per fp32 rope-free call)
 dq_launches = 0           # RoPE backward, dQ kernel
 dkv_launches = 0          # RoPE backward, dK/dV kernel
 norope_launches = 0       # rope-free forward
@@ -86,26 +93,29 @@ def rope_rotate_ref(x, cos=None, sin=None) -> torch.Tensor:
 
 def rope_rotate(jobs):
     """The rotation pass: for each (x, cos, sin) of ``jobs`` (at most four;
-    cos = sin = None for a plain rounding) a bf16 tensor of x's shape. CPU
-    tensors take the plain version; CUDA tensors run all jobs in one launch
-    of the kernel (counted) or raise."""
+    cos = sin = None for a plain rounding) a bf16 tensor of x's shape. A
+    rotating job takes head dim 128, a rounding one 64 or 128. CPU tensors
+    take the plain version; CUDA tensors run all jobs in one launch of the
+    kernel (counted) or raise."""
     if jobs[0][0].device.type == "cpu":
         return [rope_rotate_ref(*job) for job in jobs]
     if not 1 <= len(jobs) <= 4:
         raise ValueError("rope_rotate: one to four jobs")
     bh = jobs[0][0].shape[0] * jobs[0][0].shape[1]
     for x, cos, sin in jobs:
+        dims = HEAD_DIMS_NOROPE if cos is None else (HEAD_DIM,)
         if x.dtype not in _DTYPES or not x.is_cuda or not x.is_contiguous() \
-                or x.dim() != 4 or x.shape[-1] != HEAD_DIM \
+                or x.dim() != 4 or x.shape[-1] not in dims \
                 or x.shape[0] * x.shape[1] != bh:
-            raise ValueError(f"rope_rotate: x must be a contiguous [B, H, S, {HEAD_DIM}] "
-                             f"bf16 or fp32 CUDA tensor of one B*H, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+            raise ValueError(f"rope_rotate: x must be a contiguous [B, H, S, D] bf16 "
+                             f"or fp32 CUDA tensor of one B*H with D in {dims}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
         if cos is not None and not all(
                 t.shape == (x.shape[2], HEAD_DIM) and t.dtype == torch.float32
                 and t.device == x.device and t.is_contiguous() for t in (cos, sin)):
             raise ValueError("rope_rotate: tables must be contiguous f32 [S, D] "
                              "on x's device")
+    _tma_ready("rope_rotate", *(x for x, _, _ in jobs))
     return _rotate(jobs)
 
 
@@ -121,12 +131,12 @@ def _rotate(jobs):
         [None if c is None else c.data_ptr() for _, c, _ in jobs],
         [None if c is None else c.data_ptr() for _, _, c in jobs])]
     ints = [(ctypes.c_int * 4)(*vals) for vals in (
-        [x.shape[2] for x, _, _ in jobs],
+        [x.shape[2] for x, _, _ in jobs], [x.shape[3] for x, _, _ in jobs],
         [int(x.dtype == torch.float32) for x, _, _ in jobs])]
     x = jobs[0][0]
     build.check(_entry("rope_rotate")(
-        *ptrs, *ints, len(jobs), x.shape[0] * x.shape[1],
-        torch.cuda.current_stream(x.device).cuda_stream), KERNEL + "_rotate")
+        *ptrs, *ints, len(jobs), x.shape[0] * x.shape[1], _stream(x)),
+        KERNEL + "_rotate")
     global rotate_launches
     rotate_launches += 1
     return outs
@@ -167,17 +177,16 @@ def flash_attention_rope_bwd_ref(q, k, v, o, do, cos, sin, kcos, ksin):
 
 
 # C entry points: (library, pointer arguments, int arguments, float
-# arguments); the ints are BH, Sq, Skv (and D for the rope-free kernel), and
-# every entry ends with an fp32 flag and the stream. rope_rotate takes six
-# arrays (sources, destinations, cos, sin, rows, fp32 flags), then the job
-# count and BH as ints, then the stream.
-_ENTRIES = {"rope_rotate": (KERNEL, 6, 1, 0),
+# arguments); the ints are BH, Sq, Skv (and D for the rope-free kernels),
+# and every entry ends with an fp32 flag and the stream. rope_rotate takes seven arrays
+# (sources, destinations, cos, sin, rows, head dims, fp32 flags), then the
+# job count and BH as ints, then the stream.
+_ENTRIES = {"rope_rotate": (KERNEL, 7, 1, 0),
             "flash_attention_rope": (KERNEL, 11, 3, 1),
             "flash_attention_rope_bwd_dkv": (KERNEL_BWD, 10, 3, 2),
             "flash_attention_rope_bwd_dq": (KERNEL_BWD, 9, 3, 2),
-            "flash_attention": (KERNEL_NOROPE, 5, 4, 1),
-            "flash_attention_bwd_dkv": (KERNEL_NOROPE_BWD, 8, 4, 2),
-            "flash_attention_bwd_dq": (KERNEL_NOROPE_BWD, 7, 4, 2)}
+            "flash_attention": (KERNEL_NOROPE, 7, 4, 1),
+            "flash_attention_bwd": (KERNEL_NOROPE_BWD, 13, 4, 2)}
 
 
 def _entry(name: str):
@@ -226,8 +235,16 @@ def _tables(cos, sin, kcos, ksin):
             ("ksin", ksin, f32)]
 
 
+def _stream(t) -> int:
+    """The raw handle of the current CUDA stream of t's device (the same
+    stream as ``torch.cuda.current_stream(t.device)``, without building its
+    Python object: a few microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
 def _tma_ready(what, *tensors):
-    """Raise unless each tensor's address suits a TMA tensor map (16 bytes)."""
+    """Raise unless each tensor's address suits a TMA tensor map and the
+    kernels' 16-byte loads (16 bytes)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: tensors must start on a 16-byte boundary")
@@ -255,8 +272,7 @@ def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
     if b * h * sq == 0:
         return out, lse
     fp32 = dt == torch.float32
-    if not fp32:
-        _tma_ready("flash_attention_rope", v)
+    _tma_ready("flash_attention_rope", q, k, v)
     kr = torch.empty(k.shape, dtype=torch.bfloat16, device=k.device)
     vb = torch.empty(v.shape, dtype=torch.bfloat16, device=v.device) if fp32 else None
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
@@ -265,7 +281,7 @@ def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
         kcos.data_ptr(), ksin.data_ptr(), kr.data_ptr(),
         None if vb is None else vb.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
-        scale_log2, int(fp32), torch.cuda.current_stream(q.device).cuda_stream)
+        scale_log2, int(fp32), _stream(q))
     build.check(err, KERNEL)
     global launches, rotate_launches
     rotate_launches += 1
@@ -276,10 +292,10 @@ def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
 def _rotated_bwd_operands(q, k, v, do, cos, sin, kcos, ksin):
     """(qr, kr, v, dO) in bf16 for the backward kernels, from one launch of
     the rotation pass (which also rounds fp32 v and dO)."""
+    _tma_ready("flash_attention_rope_bwd", q, k, v, do)
     if q.dtype == torch.float32:
         return tuple(_rotate([(q, cos, sin), (k, kcos, ksin),
                               (v, None, None), (do, None, None)]))
-    _tma_ready("flash_attention_rope_bwd", v, do)
     return (*_rotate([(q, cos, sin), (k, kcos, ksin)]), v, do)
 
 
@@ -289,7 +305,7 @@ def _bwd_args(rotated, q, k, lse, drow):
     return ((*(x.data_ptr() for x in rotated), lse.data_ptr(), drow.data_ptr()),
             (q.shape[0] * q.shape[1], q.shape[2], k.shape[2], scale,
              scale * math.log2(math.e), int(q.dtype == torch.float32),
-             torch.cuda.current_stream(q.device).cuda_stream))
+             _stream(q)))
 
 
 def flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, cos, sin, kcos, ksin,
@@ -430,7 +446,8 @@ def _check_norope(what, named, q, k, v):
 def flash_attention_fwd(q, k, v, with_lse=False):
     """Rope-free forward -> (out, lse [B,H,Sq] f32 or None). CPU tensors take
     the plain version (no lse: the plain backward recomputes P); CUDA tensors
-    launch the kernel (and count the launch) or raise. ``with_lse`` makes the
+    launch the kernel (and, for fp32 inputs, the rounding pass first, from
+    the same C call; each launch counted) or raise. ``with_lse`` makes the
     kernel also write the row log-sum-exp for the backward."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v), None
@@ -441,56 +458,78 @@ def flash_attention_fwd(q, k, v, with_lse=False):
            if with_lse else None)
     if b * h * sq == 0:
         return out, lse
+    _tma_ready("flash_attention", q, k, v)
+    fp32 = q.dtype == torch.float32
+    kb, vb = ((torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+               for x in (k, v)) if fp32 else (None, None))
     scale_log2 = (1.0 / math.sqrt(d)) * math.log2(math.e)
     err = _entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2], d,
-        scale_log2, int(q.dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(None if x is None else x.data_ptr()
+                                                    for x in (kb, vb, out, lse)),
+        b * h, sq, k.shape[2], d, scale_log2, int(fp32), _stream(q))
     build.check(err, KERNEL_NOROPE)
-    global norope_launches
+    global norope_launches, rotate_launches
+    rotate_launches += int(fp32)
     norope_launches += 1
     return out, lse
 
 
-def _norope_bwd_args(q, k, v, do, lse, drow):
+def _norope_bwd_launch(operands, scratch, q, k, lse, drow, dq=None, dk=None, dv=None):
+    """One C call of the rope-free backward on checked CUDA tensors: for fp32
+    ``operands`` with bf16 ``scratch`` buffers the rounding pass first, then
+    the dK/dV kernel where dk, dv are given and the dQ kernel where dq is
+    given, both on one set of tensor maps. Counts the launches."""
     b, h, sq, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), drow.data_ptr()),
-            (b * h, sq, k.shape[2], d, scale, scale * math.log2(math.e),
-             int(q.dtype == torch.float32),
-             torch.cuda.current_stream(q.device).cuda_stream))
+    fp32 = q.dtype == torch.float32
+    build.check(_entry("flash_attention_bwd")(
+        *(x.data_ptr() for x in operands),
+        *(None if x is None else x.data_ptr() for x in scratch),
+        lse.data_ptr(), drow.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
+        b * h, sq, k.shape[2], d, scale, scale * math.log2(math.e), int(fp32),
+        _stream(q)), KERNEL_NOROPE_BWD)
+    global rotate_launches, norope_dq_launches, norope_dkv_launches
+    rotate_launches += int(scratch[0] is not None)
+    norope_dkv_launches += int(dk is not None)
+    norope_dq_launches += int(dq is not None)
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, drow):
+def _norope_bwd_operands(q, k, v, do):
+    """(q, k, v, dO) in bf16 for the rope-free backward kernels: as given,
+    or for fp32 inputs from one launch of the rounding pass (counted)."""
+    _tma_ready("flash_attention_bwd", q, k, v, do)
+    if q.dtype == torch.float32:
+        return tuple(_rotate([(x, None, None) for x in (q, k, v, do)]))
+    return q, k, v, do
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, drow, operands=None):
     """The rope-free dK/dV kernel alone on checked CUDA tensors -> (dk, dv);
-    counted."""
-    ptrs, rest = _norope_bwd_args(q, k, v, do, lse, drow)
+    counted. ``operands``: the bf16 (q, k, v, dO) of
+    ``_norope_bwd_operands``, else they are made first (fp32: the rounding
+    pass, counted)."""
+    operands = operands or _norope_bwd_operands(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    build.check(_entry("flash_attention_bwd_dkv")(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *rest), KERNEL_NOROPE_BWD + "_dkv")
-    global norope_dkv_launches
-    norope_dkv_launches += 1
+    _norope_bwd_launch(operands, (None,) * 4, q, k, lse, drow, dk=dk, dv=dv)
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, drow):
-    """The rope-free dQ kernel alone on checked CUDA tensors -> dq; counted."""
-    ptrs, rest = _norope_bwd_args(q, k, v, do, lse, drow)
+def flash_attention_bwd_dq(q, k, v, do, lse, drow, operands=None):
+    """The rope-free dQ kernel alone on checked CUDA tensors -> dq; counted.
+    ``operands`` as for flash_attention_bwd_dkv."""
+    operands = operands or _norope_bwd_operands(q, k, v, do)
     dq = torch.empty_like(q)
-    build.check(_entry("flash_attention_bwd_dq")(*ptrs, dq.data_ptr(), *rest),
-                KERNEL_NOROPE_BWD + "_dq")
-    global norope_dq_launches
-    norope_dq_launches += 1
+    _norope_bwd_launch(operands, (None,) * 4, q, k, lse, drow, dq=dq)
     return dq
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
     """Rope-free backward -> (dq, dk, dv). CPU tensors take the plain version
     (``lse`` unused); CUDA tensors run D = rowsum(dO * O) in fp32 (a torch
-    elementwise pass, as XLA computes it in JAX), then launch the dK/dV and
-    the dQ kernels (each counted) or raise."""
+    elementwise pass, as XLA computes it in JAX), then one C call: for fp32
+    inputs the rounding pass for both kernels, and the dK/dV and the dQ
+    kernels (each launch counted); or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, do)
     if lse is None:
@@ -504,9 +543,12 @@ def flash_attention_bwd(q, k, v, o, lse, do):
                          "f32 lse [B, H, Sq] and o, do of q's shape")
     if b * h * sq == 0:
         return torch.empty_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    _tma_ready("flash_attention_bwd", q, k, v, do)
     drow = (do.float() * o.float()).sum(-1)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, drow)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, drow)
+    scratch = ([torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+                for x in (q, k, v, do)] if q.dtype == torch.float32 else (None,) * 4)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _norope_bwd_launch((q, k, v, do), scratch, q, k, lse, drow, dq, dk, dv)
     return dq, dk, dv
 
 
