@@ -10,17 +10,21 @@ Phases, in order; any failure exits non-zero:
      per source, started together) into build/kernels.
   3. kernels: each kernel at the main paths' shapes against its plain
      PyTorch version on the card (attention bf16 within atol=rtol=1e-2, W4A8
-     and the RoPE rotation pass bit-identical, the attention backward's dq,
+     at every shape of a b=2 FLUX forward, the activation quantization and
+     the RoPE rotation pass bit-identical, the attention backward's dq,
      dk, dv each within 2e-2 of its largest |value| and 1e-2 relative L2),
      with CUDA-event medians of the kernel, the plain version and a library
      yardstick that the port never calls, beside the bound; the RoPE forward
      and the whole backwards also by profiler device time (device_ms); a
      "ptxas" line with the registers, spills and static shared memory of
-     the RoPE kernels from their build logs.
+     every kernel from their build logs; "w4a8_tiles" lines time each W4A8
+     path shape at every tile of the Hopper kernel (the measurement behind
+     quant_matmul.tile).
   4. slice: the full-width W4A8 UniGen-FLUX (flux_full, 512^2, 4 Euler steps)
      serves four b=1 requests through MicroBatchServer(batch_size=2); the
-     launch counters must show every attention and every W4A8 linear of
-     those forwards went through the kernels; in one more forward every
+     launch counters must show every attention, every W4A8 linear and every
+     activation quantization of those forwards went through the kernels
+     (and none through the general W4A8 kernel); in one more forward every
      kernel call is also held against its plain version on the path's own
      inputs, and that forward and one with the plain versions on the same
      inputs agree within 3e-2 relative L2; a profiled forward gives the
@@ -96,8 +100,23 @@ HBM_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 ATTN_CASES = [            # (B*H split as B, H, Sq, Skv, identity K rows)
     (1, 24, 1536, 1536, 0), (1, 24, 2048, 2048, 0), (1, 24, 2560, 2560, 0),
     (1, 24, 1536, 2048, 512)]
+# W4A8 (M, K, N): the first four as in earlier PRs, then every shape of a
+# b=2 FLUX forward (tokens: 1024 text, 2048 image, 3072 single-block
+# stream; 2 for the AdaLN linears)
 W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
-              (1536, 15360, 3072)]
+              (1536, 15360, 3072),
+              (1024, 3072, 3072), (2048, 3072, 3072), (3072, 3072, 3072),
+              (1024, 3072, 12288), (2048, 3072, 12288), (3072, 3072, 12288),
+              (1024, 12288, 3072), (2048, 12288, 3072), (3072, 15360, 3072),
+              (2, 3072, 9216)]
+W4A8_REP = (2048, 3072, 3072)         # the kernels line's shape
+# the activation quantization at the path's (M, K) in bf16, and one fp32 row
+# (the Trainer's activations)
+QUANT_CASES = [(2, 3072, "bfloat16"), (1024, 3072, "bfloat16"), (2048, 3072, "bfloat16"),
+               (3072, 3072, "bfloat16"), (1024, 12288, "bfloat16"),
+               (2048, 12288, "bfloat16"), (3072, 15360, "bfloat16"),
+               (2048, 3072, "float32")]
+QUANT_REP = (2048, 3072, "bfloat16")
 # the rope-free kernel at the SD3 paths' shapes (B, H, Sq, Skv, D): 512^2 at
 # serving batch 4 (2 requests x CFG), then the 1024^2 lengths at batch 2
 SD3_TXT = 77 + 256        # CLIP + T5 joint context
@@ -144,6 +163,10 @@ BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 # the register count at entry of the setmaxnreg kernels (24 x 128 + 240 x 256
 # = 168 x 384)
 SETMAXNREG_REGISTERS = 168
+# kernels that move registers with setmaxnreg, by ptxas-line key prefix: the
+# attention kernels and the W4A8 kernel's 256-row instantiations
+SETMAXNREG_PREFIXES = ("flash", "w4a8_wgmma_kernel<bf16,256>",
+                       "w4a8_wgmma_kernel<float,256>")
 NOROPE_BWD_NAMES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
@@ -217,12 +240,13 @@ def device_ms(torch, fn, runs: int = 10) -> float:
 def routed(**fns):
     """Route the port's kernel entry points (``flash_attention_rope_fwd``,
     ``flash_attention_rope_bwd``, ``flash_attention_fwd``,
-    ``flash_attention_bwd`` of the attention module, ``w4a8_matmul`` of the
-    quantized one) through the given functions; both directions of both
-    attention autograd Functions look them up at each call."""
+    ``flash_attention_bwd`` of the attention module, ``w4a8_matmul`` and
+    ``quantize_act`` of the quantized one) through the given functions;
+    both directions of both attention autograd Functions and every
+    quantized linear look them up at each call."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    mods = {name: qm if name == "w4a8_matmul" else fa for name in fns}
+    mods = {name: qm if name in ("w4a8_matmul", "quantize_act") else fa for name in fns}
     saved = {name: getattr(mods[name], name) for name in fns}
     for name, fn in fns.items():
         setattr(mods[name], name, fn)
@@ -251,7 +275,7 @@ def plain_kernels():
         return fa.flash_attention_bwd_ref(q, k, v, o, do)
     return routed(flash_attention_rope_fwd=fwd, flash_attention_rope_bwd=bwd,
                   flash_attention_fwd=norope_fwd, flash_attention_bwd=norope_bwd,
-                  w4a8_matmul=qm.w4a8_matmul_ref)
+                  w4a8_matmul=qm.w4a8_matmul_ref, quantize_act=qm.quantize_act_ref)
 
 
 def attention_fp64(torch, q, k, v, *tables):
@@ -346,15 +370,17 @@ def shadowed_backwards(torch, checks, seed=0):
 def shadowed_kernels(torch, checks):
     """Run every kernel call of the path as it is and also through its plain
     version on the same inputs; append one record per call to
-    ``checks[name]``. W4A8 must be bit-identical. Attention must agree within
+    ``checks[name]``. W4A8 and the activation quantization must be
+    bit-identical. Attention must agree within
     1e-2 of the call's largest output: the two bf16 versions round P at
     different points (the kernel before normalising, the plain version
     after), so their difference scales with the call's outputs, not with
     each element."""
     from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
-    kernel_fa, kernel_norope, kernel_qm = (fa.flash_attention_rope_fwd,
-                                           fa.flash_attention_fwd, qm.w4a8_matmul)
+    kernel_fa, kernel_norope, kernel_qm, kernel_quant = (
+        fa.flash_attention_rope_fwd, fa.flash_attention_fwd, qm.w4a8_matmul,
+        qm.quantize_act)
 
     def attention(*args, with_lse=False):
         out, lse = kernel_fa(*args, with_lse=with_lse)
@@ -377,8 +403,16 @@ def shadowed_kernels(torch, checks):
             ok=torch.equal(out, ref)))
         return out
 
+    def quantize(x):
+        (xq, xs), (rq, rs) = kernel_quant(x), qm.quantize_act_ref(x)
+        checks.setdefault("quantize_act", []).append(dict(
+            max_abs_err=max((xq.int() - rq.int()).abs().max().item(),
+                            (xs - rs).abs().max().item()),
+            ok=torch.equal(xq, rq) and torch.equal(xs, rs)))
+        return xq, xs
+
     return routed(flash_attention_rope_fwd=attention, flash_attention_fwd=norope,
-                  w4a8_matmul=w4a8)
+                  w4a8_matmul=w4a8, quantize_act=quantize)
 
 
 def path_check_summary(checks):
@@ -478,16 +512,22 @@ def ptxas_line(build, names):
 
 
 def check_setmaxnreg(kernels):
-    """Every attention kernel runs 384 threads and moves registers with
-    setmaxnreg (24 for the producer, 240 for the consumers): it must enter
-    with exactly SETMAXNREG_REGISTERS registers a thread, or
-    setmaxnreg.inc waits forever and the launch hangs the card. Stop before
-    launching anything otherwise."""
-    bad = {k: v["registers"] for k, v in kernels.items()
-           if k.startswith("flash") and v["registers"] != SETMAXNREG_REGISTERS}
-    if bad or not any(k.startswith("flash") for k in kernels):
+    """Every kernel that moves registers with setmaxnreg
+    (SETMAXNREG_PREFIXES: 384 threads, 24 for the producer, 240 for the
+    consumers) must enter with exactly SETMAXNREG_REGISTERS registers a
+    thread, or setmaxnreg.inc waits forever and the launch hangs the card;
+    the W4A8 Hopper kernels must not spill. Stop before launching anything
+    otherwise."""
+    moving = {k: v for k, v in kernels.items() if k.startswith(SETMAXNREG_PREFIXES)}
+    bad = {k: v["registers"] for k, v in moving.items()
+           if v["registers"] != SETMAXNREG_REGISTERS}
+    if bad or not moving:
         raise SystemExit(f"setmaxnreg kernels built with other than "
                          f"{SETMAXNREG_REGISTERS} registers (they would hang): {bad}")
+    spilling = {k: v for k, v in kernels.items()
+                if k.startswith("w4a8_wgmma") and (v["spill_stores"] or v["spill_loads"])}
+    if spilling:
+        raise SystemExit(f"W4A8 kernels spill: {spilling}")
 
 
 def changed_bits(torch, dev, pfa, fa, seed=0):
@@ -549,20 +589,70 @@ def parent_phase(parent, seed):
     return rows
 
 
-def load_parent_attention(parent):
-    """The parent commit's attention wrappers (``ops/cuda/flash_attention.py``
-    of the checkout at ``parent``), loaded beside this tree's under other
-    module names, with its own build module: its kernels are built from its
-    csrc into its build directory."""
+def load_parent(parent):
+    """The parent commit's kernel wrappers (``ops/cuda/flash_attention.py``
+    and ``quant_matmul.py`` of the checkout at ``parent``) and its
+    ``ops/quant.py`` (its activation quantization), loaded beside this
+    tree's under other module names, with its own build module: its
+    kernels are built from its csrc into its build directory."""
     import importlib.util
-    root = Path(parent).resolve() / "unigen_tpu_torch" / "ops" / "cuda"
+    root = Path(parent).resolve() / "unigen_tpu_torch" / "ops"
     mods = {}
-    for name in ("build", "flash_attention"):
-        spec = importlib.util.spec_from_file_location(f"parent_{name}", root / f"{name}.py")
+    for name, path in (("build", "cuda/build.py"), ("flash_attention", "cuda/flash_attention.py"),
+                       ("quant_matmul", "cuda/quant_matmul.py"), ("quant", "quant.py")):
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", root / path)
         mods[name] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mods[name])
-    mods["flash_attention"].build = mods["build"]
-    return mods["flash_attention"]
+    mods["flash_attention"].build = mods["quant_matmul"].build = mods["build"]
+    mods["quant"].quant_matmul = mods["quant_matmul"]
+    return mods
+
+
+def changed_w4a8_bits(torch, dev, pqm, seed=0):
+    """W4A8 outputs (bf16 and fp32) through the parent's wrapper (``pqm``)
+    and this tree's at phase 3's shapes, on the same inputs: the outputs
+    whose bits differ, and how many were compared."""
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    changed, compared = [], 0
+    for m, kdim, n in W4A8_CASES:
+        args = w4a8_inputs(torch, dev, g, m, kdim, n)
+        for dtype in (torch.bfloat16, torch.float32):
+            compared += 1
+            if not torch.equal(pqm.w4a8_matmul(*args, dtype), qm.w4a8_matmul(*args, dtype)):
+                changed.append(f"w4a8 {m}x{kdim}x{n} {dtype}")
+    return changed, compared
+
+
+def quant_vs_parent(torch, dev, pquant, seed=0):
+    """The activation quantization through the parent's ``_quantize_act``
+    (an eager chain) and this tree's (the kernel) at QUANT_CASES, on the
+    same inputs. They differ where the parent's scale is not amax / 127:
+    on the card torch divides a tensor by a Python number by multiplying
+    with the number's fp32 reciprocal. Each case: the rows whose scale
+    differs, the codes that differ, and whether every parent scale equals
+    amax * fl(1/127) exactly (the explanation) while this tree's equals the
+    IEEE amax / 127 of the JAX function."""
+    from unigen_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    out = []
+    for m, kdim, dtype in QUANT_CASES:
+        x = (torch.randn(m, kdim, device=dev, generator=g) * 3).to(getattr(torch, dtype))
+        (pq, ps), (tq, ts) = pquant._quantize_act(x), quant._quantize_act(x)
+        amax = x.float().abs().amax(-1, keepdim=True)
+        one = torch.ones((), device=dev)
+        recip = one / torch.full((), 127.0, device=dev)
+        ieee = torch.where(amax > 0, amax / torch.full((), 127.0, device=dev), one)
+        out.append(dict(m=m, k=kdim, dtype=dtype,
+                        scales_differ=int((ps != ts).sum()),
+                        codes_differ=int((pq != tq).sum()), codes=pq.numel(),
+                        explained=torch.equal(ps, torch.where(amax > 0, amax * recip, one))
+                        and torch.equal(ts, ieee)))
+    emit(dict(phase="quant_vs_parent", cases=out))
+    if not all(c["explained"] for c in out):
+        raise SystemExit(f"the quantization differs from the parent's other than by "
+                         f"the reciprocal: {out}")
+    return out
 
 
 def host_bound_ab(torch, dev, pfa, rounds=4):
@@ -630,11 +720,119 @@ def same_run(rows, parent_rows):
     return out
 
 
-def phase_kernels(torch, dev, seed):
-    import torch.nn.functional as F
-    from unigen_tpu_torch.ops.cuda import flash_attention as fa
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    card idle at the start, synchronised after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def w4a8_inputs(torch, dev, g, m, kdim, n):
+    xq = torch.randint(-127, 128, (m, kdim), dtype=torch.int8, device=dev, generator=g)
+    xs = torch.rand(m, 1, device=dev, generator=g) * 1e-2 + 1e-4
+    w = torch.randint(-128, 128, (kdim // 2, n), dtype=torch.int8, device=dev, generator=g)
+    ws = torch.rand(1, n, device=dev, generator=g) * 1e-3 + 1e-4
+    return xq, xs, w, ws
+
+
+def w4a8_row(torch, dev, g, m, kdim, n, pqm=None):
+    """The W4A8 kernel at one shape against its plain version (bit
+    equality), CUDA-event and profiler times, host us per call, the bound,
+    the library's int8 GEMM with the eager epilogue (library_ms) and alone
+    (library_gemm_ms), and with ``pqm`` (the parent's wrapper module) the
+    parent's kernel and this one timed in turns in this process
+    (parent_ms, same_run_ms)."""
     from unigen_tpu_torch.ops.cuda import quant_matmul as qm
     from unigen_tpu_torch.ops.quant import _int_mm, unpack_int4
+    xq, xs, w, ws = w4a8_inputs(torch, dev, g, m, kdim, n)
+    out = qm.w4a8_matmul(xq, xs, w, ws)
+    torch.cuda.synchronize()
+    ref = qm.w4a8_matmul_ref(xq, xs, w, ws)
+    ok = torch.equal(out, ref) and torch.equal(
+        qm.w4a8_matmul(xq, xs, w, ws, torch.float32),
+        qm.w4a8_matmul_ref(xq, xs, w, ws, torch.float32))
+    w8 = unpack_int4(w)
+    xq_gemm = torch.cat([xq, xq.new_zeros(32 - m, kdim)]) if m <= 16 else xq
+    bms, by = bound(2.0 * m * n * kdim, INT8_OPS,
+                    m * kdim + 4.0 * m + kdim / 2 * n + 4.0 * n + 2.0 * m * n)
+    call = lambda: qm.w4a8_matmul(xq, xs, w, ws)      # noqa: E731
+    row = dict(kernel="w4a8_matmul", m=m, k=kdim, n=n,
+               route="wgmma" if qm.tma_shape(kdim, n) else "general",
+               tile=list(qm.tile(m, n, kdim)),
+               max_abs_err=(out.float() - ref.float()).abs().max().item(), ok=ok,
+               ms=median_ms(call), device_ms=device_ms(torch, call),
+               host_us=host_us(torch, call),
+               plain_ms=median_ms(lambda: qm.w4a8_matmul_ref(xq, xs, w, ws)),
+               library_ms=median_ms(lambda: (
+                   _int_mm(xq, w8).float() * xs * ws).to(torch.bfloat16)),
+               library_gemm_ms=median_ms(lambda: torch._int_mm(xq_gemm, w8)),
+               bound_ms=bms, bound_by=by)
+    if pqm is not None:
+        pcall = lambda: pqm.w4a8_matmul(xq, xs, w, ws)    # noqa: E731
+        t = {"parent": [], "this": []}
+        for side in ("parent", "this", "this", "parent"):
+            t[side].append(median_ms(pcall if side == "parent" else call))
+        row.update(same_run_ms=statistics.median(t["this"]),
+                   parent_ms=statistics.median(t["parent"]),
+                   parent_device_ms=device_ms(torch, pcall))
+    emit(row)
+    return row
+
+
+def quantize_row(torch, dev, g, m, kdim, dtype):
+    """The activation quantization at one (M, K, dtype) against its plain
+    version (codes and scales bit-identical), with event and profiler
+    times and the byte bound (x read once, codes and scales written once).
+    No single PyTorch call computes it: library_ms is null."""
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    x = (torch.randn(m, kdim, device=dev, generator=g) * 3).to(getattr(torch, dtype))
+    x[1] = 0                         # an all-zero row: scale 1, codes 0
+    (xq, xs), (rq, rs) = qm.quantize_act(x), qm.quantize_act_ref(x)
+    torch.cuda.synchronize()
+    call = lambda: qm.quantize_act(x)                  # noqa: E731
+    row = dict(kernel="quantize_act", m=m, k=kdim, dtype=dtype,
+               ok=torch.equal(xq, rq) and torch.equal(xs, rs),
+               max_abs_err=max((xq.int() - rq.int()).abs().max().item(),
+                               (xs - rs).abs().max().item()),
+               ms=median_ms(call), device_ms=device_ms(torch, call),
+               host_us=host_us(torch, call),
+               plain_ms=median_ms(lambda: qm.quantize_act_ref(x)), library_ms=None,
+               bound_ms=(x.numel() * (x.element_size() + 1) + 4.0 * m) / HBM_BYTES * 1e3,
+               bound_by="bytes")
+    emit(row)
+    return row
+
+
+def w4a8_tiles(torch, dev, seed):
+    """Each W4A8 path shape at every tile the Hopper kernel offers (rows a
+    block; K splits for short M), bit-checked and timed: the measurement
+    behind quant_matmul.tile. One line per shape."""
+    from unigen_tpu_torch.ops.cuda import quant_matmul as qm
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    for m, kdim, n in W4A8_CASES[:1] + W4A8_CASES[4:]:
+        xq, xs, w, ws = w4a8_inputs(torch, dev, g, m, kdim, n)
+        ref = qm.w4a8_matmul_ref(xq, xs, w, ws)
+        stages = -(-(kdim // 2) // qm.STAGE_ROWS)
+        tiles = ([(64, s) for s in (1, 2, 3, 4, 6, 8, 12, 16, 24) if s <= stages]
+                 if m <= 64 else [(256, 1), (256, 2), (64, 1)])
+        times = {}
+        for bm, split in tiles:
+            fn = lambda: qm._launch(xq, xs, w, ws, torch.bfloat16, bm, split)  # noqa: E731
+            if not torch.equal(fn(), ref):
+                raise SystemExit(f"W4A8 tile {bm}/{split} disagrees at {m}x{kdim}x{n}")
+            times[f"{bm}/{split}"] = [median_ms(fn), device_ms(torch, fn)]
+        emit(dict(phase="w4a8_tiles", m=m, k=kdim, n=n, picked=list(qm.tile(m, n, kdim)),
+                  ms_and_device_ms=times))
+
+
+def phase_kernels(torch, dev, seed, pqm=None):
+    import torch.nn.functional as F
+    from unigen_tpu_torch.ops.cuda import flash_attention as fa
     from unigen_tpu_torch.ops.rope import apply_rotary
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -714,30 +912,9 @@ def phase_kernels(torch, dev, seed):
         emit(row)
         rows["flash_attention"].append(row)
 
-    for m, kdim, n in W4A8_CASES:
-        xq = torch.randint(-127, 128, (m, kdim), dtype=torch.int8, device=dev,
-                           generator=g)
-        xs = torch.rand(m, 1, device=dev, generator=g) * 1e-2 + 1e-4
-        w = torch.randint(-128, 128, (kdim // 2, n), dtype=torch.int8,
-                          device=dev, generator=g)
-        ws = torch.rand(1, n, device=dev, generator=g) * 1e-3 + 1e-4
-        out = qm.w4a8_matmul(xq, xs, w, ws)
-        torch.cuda.synchronize()
-        ref = qm.w4a8_matmul_ref(xq, xs, w, ws)
-        w8 = unpack_int4(w)
-        ops = 2.0 * m * n * kdim
-        nbytes = m * kdim + 4.0 * m + kdim / 2 * n + 4.0 * n + 2.0 * m * n
-        bms, by = bound(ops, INT8_OPS, nbytes)
-        row = dict(kernel="w4a8_matmul", m=m, k=kdim, n=n,
-                   max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                   ok=torch.equal(out, ref),
-                   ms=median_ms(lambda: qm.w4a8_matmul(xq, xs, w, ws)),
-                   plain_ms=median_ms(lambda: qm.w4a8_matmul_ref(xq, xs, w, ws)),
-                   library_ms=median_ms(lambda: (
-                       _int_mm(xq, w8).float() * xs * ws).to(torch.bfloat16)),
-                   bound_ms=bms, bound_by=by)
-        emit(row)
-        rows["w4a8_matmul"].append(row)
+    rows["w4a8_matmul"] = [w4a8_row(torch, dev, g, *case, pqm=pqm)
+                           for case in W4A8_CASES]
+    rows["quantize_act"] = [quantize_row(torch, dev, g, *case) for case in QUANT_CASES]
     rows.update(backward_rows(torch, dev, g, ids))
     rows.update(norope_backward_rows(torch, dev, g))
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
@@ -996,11 +1173,12 @@ def device_breakdown(torch, fn, phase="profile", **extra):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    groups = {"w4a8_matmul": 0.0, "flash_attention_rope": 0.0, "rope_rotate": 0.0,
-              "flash_attention_rope_bwd": 0.0, "flash_attention": 0.0,
+    groups = {"w4a8_matmul": 0.0, "quantize_act": 0.0, "flash_attention_rope": 0.0,
+              "rope_rotate": 0.0, "flash_attention_rope_bwd": 0.0, "flash_attention": 0.0,
               "flash_attention_bwd": 0.0, "library gemm": 0.0, "other": 0.0}
     for name, us in by_name.items():
         key = ("w4a8_matmul" if "w4a8" in name else
+               "quantize_act" if "quantize_act" in name else
                "rope_rotate" if "rope_rotate" in name else
                "flash_attention_rope_bwd" if "flash_rope_bwd" in name else
                "flash_attention_bwd" if "flash_bwd" in name else
@@ -1025,6 +1203,7 @@ def launch_counts():
     return {"flash_attention_rope": fa.launches, "rope_rotate": fa.rotate_launches,
             BWD_NAMES[0]: fa.dq_launches,
             BWD_NAMES[1]: fa.dkv_launches, "w4a8_matmul": qm.launches,
+            "w4a8_general": qm.general_launches, "quantize_act": qm.quantize_launches,
             "flash_attention": fa.norope_launches,
             NOROPE_BWD_NAMES[0]: fa.norope_dq_launches,
             NOROPE_BWD_NAMES[1]: fa.norope_dkv_launches}
@@ -1036,7 +1215,7 @@ def reset_launch_counts():
     fa.launches = fa.rotate_launches = fa.dq_launches = fa.dkv_launches = 0
     fa.norope_launches = 0
     fa.norope_dq_launches = fa.norope_dkv_launches = 0
-    qm.launches = 0
+    qm.launches = qm.general_launches = qm.quantize_launches = 0
 
 
 def expected_sd3_launches(cfg, batch: int = 1) -> int:
@@ -1054,6 +1233,30 @@ def expected_sd3_launches(cfg, batch: int = 1) -> int:
     return 2 * bb.num_layers + dual + experts + (3 if cc.use_shared_expert else 0)
 
 
+def quantized_calls(params, cfg, leaf: str, again: bool = False) -> int:
+    """Calls of the quantized linears whose codes are ``leaf`` ("w_q4":
+    W4A8, "w_q": W8A8) in one UniGen-FLUX forward: a stacked leaf once per
+    application of its stack (the control double and single stacks and
+    their add linears once per base block), the shared expert's and the
+    condition embedder's once per condition, any other once. ``again``:
+    the calls that the remat bodies (base + control double block i >= 1
+    with its add linear, base + control single block with its add linear)
+    run once more in the backward."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    bb = cfg.flux
+    if again:
+        uses = {"double_blocks": bb.num_layers - 1, "single_blocks": bb.num_single_layers,
+                "add_double": bb.num_layers - 1, "add_single": bb.num_single_layers}
+        default = 0
+    else:
+        uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers,
+                "add_double": bb.num_layers, "add_single": bb.num_single_layers,
+                "shared_expert": cfg.condition_nums, "condition_embed": cfg.condition_nums}
+        default = 1
+    return sum(uses.get(path[1], default) for path, _ in tree_leaves_with_path(params)
+               if path[-1] == leaf)
+
+
 def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
     """Kernel launches of one UniGen-FLUX forward at ``batch``, by kernel:
     the attention sites (the base blocks with rope; the control blocks and
@@ -1063,12 +1266,11 @@ def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
     calls counted from the tree (a stacked leaf is used once per
     application of its stack); one rotation pass per RoPE attention call,
     and with ``fp32`` activations one (rounding k and v) per rope-free
-    call."""
-    from unigen_tpu_torch.utils import tree_leaves_with_path
+    call; one activation quantization per quantized linear call (W4A8 and
+    W8A8); no launch of the general W4A8 kernel (no path shape needs
+    it)."""
     bb, cc = cfg.flux, cfg.control
-    uses = {"double_blocks": bb.num_layers, "single_blocks": bb.num_single_layers}
-    w4 = sum(uses.get(path[1], 1) for path, _ in tree_leaves_with_path(params)
-             if path[-1] == "w_q4")
+    w4 = quantized_calls(params, cfg, "w_q4")
     single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
     control = (bb.num_layers + (bb.num_single_layers if single_ctrl else 0)
                + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
@@ -1080,7 +1282,8 @@ def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
     rope = bb.num_layers + bb.num_single_layers + (control if cc.use_rope else 0)
     norope = (0 if cc.use_rope else control) + experts
     return {"flash_attention_rope": rope, "rope_rotate": rope + (norope if fp32 else 0),
-            "flash_attention": norope, "w4a8_matmul": w4}
+            "flash_attention": norope, "w4a8_matmul": w4, "w4a8_general": 0,
+            "quantize_act": w4 + quantized_calls(params, cfg, "w_q")}
 
 
 def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
@@ -1091,16 +1294,17 @@ def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
     per attention call except base double block 0, which sees no trainable
     input; one rotation pass per RoPE forward and per RoPE backward, and
     with ``fp32`` activations also one per rope-free forward and per
-    rope-free backward (the rounding of their operands)."""
-    from unigen_tpu_torch.utils import tree_leaves_with_path
+    rope-free backward (the rounding of their operands); one activation
+    quantization per quantized linear call of the forward and of the
+    recomputation (the straight-through backward of the default
+    ``quant_bwd="bf16"`` quantizes nothing)."""
     bb, cc = cfg.flux, cfg.control
     per = expected_launches(params, cfg, batch)
     single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
     base_again = bb.num_layers - 1 + bb.num_single_layers
     ctrl_again = bb.num_layers - 1 + (bb.num_single_layers if single_ctrl else 0)
-    again = {"double_blocks": bb.num_layers - 1, "single_blocks": bb.num_single_layers}
-    w4_again = sum(again.get(path[1], 0) for path, _ in tree_leaves_with_path(params)
-                   if path[-1] == "w_q4")
+    w4_again = quantized_calls(params, cfg, "w_q4", again=True)
+    w8_again = quantized_calls(params, cfg, "w_q", again=True)
     rope, norope = per["flash_attention_rope"], per["flash_attention"]
     rope_fwd = rope + base_again + (ctrl_again if cc.use_rope else 0)
     norope_fwd = norope + (0 if cc.use_rope else ctrl_again)
@@ -1109,7 +1313,8 @@ def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
             BWD_NAMES[0]: rope - 1, BWD_NAMES[1]: rope - 1,
             "flash_attention": norope_fwd,
             NOROPE_BWD_NAMES[0]: norope, NOROPE_BWD_NAMES[1]: norope,
-            "w4a8_matmul": per["w4a8_matmul"] + w4_again}
+            "w4a8_matmul": per["w4a8_matmul"] + w4_again, "w4a8_general": 0,
+            "quantize_act": per["quantize_act"] + w4_again + w8_again}
 
 
 def nonzero(counts):
@@ -1208,7 +1413,7 @@ def phase_slice(torch, dev):
     path_check = path_check_summary(checks)
     emit(dict(phase="path_check", **path_check))
     if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
-            or set(path_check) != {"flash_attention_rope", "w4a8_matmul"}:
+            or set(path_check) != {"flash_attention_rope", "w4a8_matmul", "quantize_act"}:
         raise SystemExit(f"a kernel disagrees with its plain version on the path: "
                          f"{path_check}")
     rel = ((pred_k - pred_p).norm() / pred_p.norm()).item()
@@ -1222,7 +1427,8 @@ def phase_slice(torch, dev):
                   steps=STEPS, seconds=dt, images_per_s=N_REQUESTS / dt,
                   ms_per_denoise_step=dt / forwards * 1e3,
                   attention_launches_per_forward=per_fwd["flash_attention_rope"],
-                  w4a8_launches_per_forward=per_fwd["w4a8_matmul"], launches=launches,
+                  w4a8_launches_per_forward=per_fwd["w4a8_matmul"],
+                  quantize_launches_per_forward=per_fwd["quantize_act"], launches=launches,
                   kernel_vs_plain_rel_l2=rel, peak_bytes=peak,
                   resident_bytes=resident, out_shape=list(outs[0].shape))
     emit(result)
@@ -1651,8 +1857,12 @@ def main() -> int:
     parser.add_argument("--parent", type=Path, default=None,
                         help="a checkout of the parent commit: its phase 3 runs first "
                              "on the same card, each phase-3 row is shown beside the "
-                             "parent's (the same_run line), the RoPE kernels' "
-                             "outputs must keep their bits (same_bits), and the host-bound "
+                             "parent's (the same_run line; W4A8 rows also time the "
+                             "parent's kernel in turns in this process), the RoPE "
+                             "kernels' and W4A8's outputs must keep their bits "
+                             "(same_bits), the quantization's may differ from the parent's "
+                             "only by its scale's reciprocal (quant_vs_parent), and the "
+                             "host-bound "
                              "attention calls are timed against the parent's in one "
                              "process (host_bound_ab lines)")
     parser.add_argument("--schedules", action="store_true",
@@ -1691,25 +1901,31 @@ def main() -> int:
             raise SystemExit(f"a schedule disagrees with the plain version: {bad}")
         return 0
     logs = build.build_all([fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
-                            fa.KERNEL_NOROPE_BWD, qm.KERNEL])
+                            fa.KERNEL_NOROPE_BWD, qm.KERNEL, qm.KERNEL_QUANT])
     print(f"# build: {time.time() - t0:.1f}s from {build.CSRC}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"# {name}: {line.strip()}", flush=True)
     check_setmaxnreg(ptxas_line(build, [fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
-                                        fa.KERNEL_NOROPE_BWD]))
+                                        fa.KERNEL_NOROPE_BWD, qm.KERNEL, qm.KERNEL_QUANT]))
 
     # 3. kernels at the main paths' shapes (the parent's first, with --parent)
     parent = parent_phase(args.parent, args.seed) if args.parent else None
-    rows = phase_kernels(torch, dev, args.seed)
+    pmods = load_parent(args.parent) if args.parent else None
+    rows = phase_kernels(torch, dev, args.seed,
+                         pqm=pmods["quant_matmul"] if pmods else None)
+    w4a8_tiles(torch, dev, args.seed)
     if parent:
         same_run(rows, parent)
-        pfa = load_parent_attention(args.parent)
+        pfa = pmods["flash_attention"]
         changed, compared = changed_bits(torch, dev, pfa, fa)
-        emit(dict(phase="same_bits", outputs=compared, changed=changed))
-        if changed:
-            raise SystemExit(f"the RoPE kernels' outputs changed bits: {changed}")
+        w_changed, w_compared = changed_w4a8_bits(torch, dev, pmods["quant_matmul"])
+        emit(dict(phase="same_bits", outputs=compared + w_compared,
+                  changed=changed + w_changed))
+        if changed or w_changed:
+            raise SystemExit(f"kernel outputs changed bits: {changed + w_changed}")
+        quant_vs_parent(torch, dev, pmods["quant"])
         host_bound_ab(torch, dev, pfa)
 
     # 4. the serving slice
@@ -1748,6 +1964,7 @@ def main() -> int:
         "flash_attention_rope": ("flash_attention_rope.cu", "flash_attention.py:128",
                                  pallas + "flash_attention.py:416"),
         "w4a8_matmul": ("w4a8_matmul.cu", "quant_matmul.py:57", None),
+        "quantize_act": ("quantize_act.cu", None, None),
         BWD_NAMES[0]: ("flash_attention_rope_bwd.cu", "flash_attention.py:904",
                        pallas + "flash_attention.py:670"),
         BWD_NAMES[1]: ("flash_attention_rope_bwd.cu", "flash_attention.py:958",
@@ -1763,16 +1980,22 @@ def main() -> int:
     main_path = dict(launches, flash_attention=sd3_launches["flash_attention"],
                      **{n: blocks[n] for n in NOROPE_BWD_NAMES})
     kernels = []
+    reps = {"w4a8_matmul": lambda r: (r["m"], r["k"], r["n"]) == W4A8_REP,
+            "quantize_act": lambda r: (r["m"], r["k"], r["dtype"]) == QUANT_REP}
     for name, (src, replaces, also) in sources.items():
-        rep = rows[name][1] if name == "w4a8_matmul" else rows[name][0]
+        rep = next(r for r in rows[name] if reps.get(name, lambda r: True)(r))
         entry = dict(
             name=name, route="cuda", source="unigen_tpu_torch/csrc/" + src,
-            replaces=pallas + replaces, launches=main_path[name],
+            replaces=pallas + replaces if replaces else "unigen_tpu/ops/quant.py:75",
+            launches=main_path[name],
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"])
         if also:
             entry["also_replaces"] = also
+        if not replaces:
+            entry["note"] = ("_quantize_act is not a Pallas kernel: XLA fuses it with "
+                             "its producer")
         if name in serving:
             entry["serving_launches"] = serving[name]
         if name == "flash_attention":

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on an
 NVIDIA card (the rotation pass, the RoPE attention forward and its
 backward, the rope-free
-attention forward and its backward at head dim 64 and 128, and the W4A8
-matmul). Marked ``cuda``; without a card they skip. This file imports no
+attention forward and its backward at head dim 64 and 128, the W4A8
+matmul on both its kernels, and the activation quantization). Marked ``cuda``; without a card they skip. This file imports no
 JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -83,18 +83,112 @@ def test_attention_kernel_matches_plain_on_card(card, sq, skv, n_identity, dtype
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(2, 3072, 18432), (37, 1000, 130), (300, 3072, 512)])
-def test_w4a8_kernel_bit_identical_on_card(card, m, k, n):
-    g = torch.Generator(device=card).manual_seed(1)
+def _w4a8_inputs(card, m, k, n, seed=1):
+    g = torch.Generator(device=card).manual_seed(seed)
     xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=card, generator=g)
     w = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=card, generator=g)
     xs = torch.rand(m, 1, device=card, generator=g)
     ws = torch.rand(1, n, device=card, generator=g)
+    return xq, xs, w, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (2, 3072, 18432), (37, 1000, 130), (300, 3072, 512),
+    # every shape of a b=2 FLUX forward
+    (2, 3072, 9216), (1024, 3072, 3072), (2048, 3072, 3072), (3072, 3072, 3072),
+    (1024, 3072, 12288), (2048, 3072, 12288), (3072, 3072, 12288),
+    (1024, 12288, 3072), (2048, 12288, 3072), (3072, 15360, 3072),
+    # tile edges: M around the 64- and 256-row tiles, N = 144 and 3072 + 16,
+    # K/2 = 1552 and 576 (not whole 128-row stages)
+    (1, 3104, 3088), (2, 1152, 144), (63, 3104, 144), (65, 1152, 3088),
+    (129, 3104, 144), (257, 1152, 3088)])
+def test_w4a8_kernel_bit_identical_on_card(card, m, k, n):
+    """bf16 and fp32 outputs equal the plain version bit for bit; K and N
+    multiples of 16 launch the Hopper kernel, others the general kernel,
+    each counted on its own counter."""
+    xq, xs, w, ws = _w4a8_inputs(card, m, k, n)
+    hopper = k % 16 == 0 and n % 16 == 0
     for dtype in (torch.bfloat16, torch.float32):
+        before = (t_qm.launches, t_qm.general_launches)
         out = t_qm.w4a8_matmul(xq, xs, w, ws, dtype)
         torch.cuda.synchronize()
+        assert (t_qm.launches, t_qm.general_launches) == (before[0] + hopper,
+                                                          before[1] + (not hopper))
         assert torch.equal(out, t_qm.w4a8_matmul_ref(xq, xs, w, ws, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2, 3072, 18432), (65, 3104, 3088), (1024, 3072, 3072)])
+def test_w4a8_every_tile_bit_identical_on_card(card, m, k, n):
+    """Every tile the Hopper kernel offers (64 or 256 rows, K split 1, 2, 3
+    or one range a stage) gives the plain version's bits; the split-K sums
+    repeat bit for bit from run to run."""
+    xq, xs, w, ws = _w4a8_inputs(card, m, k, n, seed=2)
+    ref = t_qm.w4a8_matmul_ref(xq, xs, w, ws)
+    stages = -(-(k // 2) // t_qm.STAGE_ROWS)
+    for bm in (64, 256):
+        for split in sorted({1, 2, 3, stages}):
+            out = t_qm._launch(xq, xs, w, ws, torch.bfloat16, bm, split)
+            again = t_qm._launch(xq, xs, w, ws, torch.bfloat16, bm, split)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref) and torch.equal(again, out), (bm, split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["xq", "w_q4"])
+def test_w4a8_misaligned_operand_raises_on_card(card, monkeypatch, which):
+    """An operand off a 16-byte boundary (a view offset by one byte) raises
+    ValueError before any launch and never takes the plain version."""
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    monkeypatch.setattr(t_qm, "w4a8_matmul_ref", refused)
+    x = dict(zip(("xq", "xs", "w_q4", "ws"), _w4a8_inputs(card, 64, 3072, 3072)))
+    flat = torch.empty(x[which].numel() + 1, dtype=torch.int8, device=card)
+    x[which] = flat[1:].view(x[which].shape).copy_(x[which])
+    assert x[which].is_contiguous() and x[which].data_ptr() % 16
+    before = (t_qm.launches, t_qm.general_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        t_qm.w4a8_matmul(x["xq"], x["xs"], x["w_q4"], x["ws"])
+    assert (t_qm.launches, t_qm.general_launches) == before
+
+
+def _edge_rows(k, device):
+    """The CPU tests' edge rows (tests/test_torch_port_quant.py): all zero;
+    reaching +amax and -amax; .5 ties at scales 1 and 1/8; Gaussian."""
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.zeros(6, k, device=device)
+    x[1] = torch.randn(k, device=device, generator=g).clamp(-5.9, 5.9)
+    x[1, 3], x[1, k - 1] = 6.0, -6.0
+    x[2, :8] = torch.tensor([127.0, 2.5, -3.5, 0.5, 1.5, -0.5, 126.5, -126.5])
+    x[3, :7] = torch.tensor([15.875, 0.0625, 0.1875, -0.3125, 15.8125, -15.875, 8.0625])
+    x[4] = -x[1] * 0.75
+    x[5] = torch.randn(k, device=device, generator=g) * 3
+    return x.bfloat16().float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,offset", [(64, 0), (3072, 0), (15360, 0), (1001, 0), (3072, 1),
+                                      (40000, 0)])
+def test_quantize_act_kernel_bit_identical_on_card(card, k, offset, dtype):
+    """Codes and scales equal the plain version bit for bit on the edge
+    rows: rows of whole 16-byte vectors in registers (K = 64, 3072, 15360),
+    and element by element (K = 1001; x off a 16-byte boundary; K past the
+    registers' reach); one launch a call; the bits repeat."""
+    x = _edge_rows(k, card).to(dtype)
+    if offset:
+        flat = torch.empty(x.numel() + offset, dtype=dtype, device=card)
+        x = flat[offset:].view(x.shape).copy_(x)
+    before = t_qm.quantize_launches
+    xq, xs = t_qm.quantize_act(x)
+    again = t_qm.quantize_act(x)
+    torch.cuda.synchronize()
+    assert t_qm.quantize_launches == before + 2
+    rq, rs = t_qm.quantize_act_ref(x)
+    assert xq.dtype == torch.int8 and xs.shape == (6, 1)
+    assert torch.equal(xq, rq) and torch.equal(xs, rs)
+    assert torch.equal(again[0], xq) and torch.equal(again[1], xs)
 
 
 def _rel_l2(a, b):

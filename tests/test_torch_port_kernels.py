@@ -94,8 +94,10 @@ def test_rope_plain_version_matches_pallas_streaming(pallas):
     assert_close(got, want, 3e-5)
 
 
-@pytest.mark.parametrize("m,k,n", [(40, 1024, 384), (40, 1536, 384)])
+@pytest.mark.parametrize("m,k,n", [(40, 1024, 384), (40, 1536, 384), (40, 1152, 384)])
 def test_w4a8_plain_version_bit_identical_to_pallas(pallas, m, k, n):
+    """K=1152: K/2 = 576 packed rows, not a whole number of the Hopper
+    kernel's 128-row stages (its last stage reads past K/2)."""
     _, qm = pallas
     rng = np.random.default_rng(1)
     jw, tw = pair(normal(rng, k, n, scale=0.02))

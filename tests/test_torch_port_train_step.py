@@ -338,11 +338,13 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
     """One W4A8 split micro-step with remat "full" calls each attention
     forward (RoPE and rope-free), each attention backward and the W4A8
     matmul exactly as often as chip_smoke.py's expected_train_launches says
-    (the recomputed forwards of every remat body included), and the formula
-    counts one RoPE rotation pass per RoPE call of either direction, so the
-    card's launch check is exact."""
+    (the recomputed forwards of every remat body included), the formula
+    counts one RoPE rotation pass per RoPE call of either direction, and
+    one activation quantization per W4A8 and W8A8 call, so the card's
+    launch check is exact."""
     import chip_smoke
-    calls = {"fwd": 0, "bwd": 0, "w4a8": 0, "norope_fwd": 0, "norope_bwd": 0}
+    calls = {"fwd": 0, "bwd": 0, "w4a8": 0, "norope_fwd": 0, "norope_bwd": 0,
+             "quantize": 0, "w8a8": 0}
 
     def counted(key, fn):
         def wrapper(*a, **kw):
@@ -358,6 +360,8 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
     monkeypatch.setattr(t_fa, "flash_attention_bwd",
                         counted("norope_bwd", t_fa.flash_attention_bwd))
     monkeypatch.setattr(t_qm, "w4a8_matmul", counted("w4a8", t_qm.w4a8_matmul))
+    monkeypatch.setattr(t_qm, "quantize_act", counted("quantize", t_qm.quantize_act))
+    monkeypatch.setattr(t_quant, "_int_mm", counted("w8a8", t_quant._int_mm))
     jc, tc = _configs(control)
     params = to_torch_tree(_w4a8_params("float32", control))
     trainable, frozen = t_quant.split_trainable(params["control"])
@@ -372,7 +376,10 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
                      "bwd": want["flash_attention_rope_bwd_dq"],
                      "w4a8": want["w4a8_matmul"],
                      "norope_fwd": want["flash_attention"],
-                     "norope_bwd": want["flash_attention_bwd_dq"]}
+                     "norope_bwd": want["flash_attention_bwd_dq"],
+                     "quantize": want["quantize_act"],
+                     "w8a8": want["quantize_act"] - want["w4a8_matmul"]}
+    assert calls["w8a8"] > 0 and want["w4a8_general"] == 0
     assert want["flash_attention_rope_bwd_dq"] == want["flash_attention_rope_bwd_dkv"]
     # one rotation pass per RoPE forward and per RoPE backward call
     assert want["rope_rotate"] == calls["fwd"] + calls["bwd"]

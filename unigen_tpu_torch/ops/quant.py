@@ -9,8 +9,10 @@ along the in-dim: packed row j holds source row j in its low nibble and row
 j + in/2 in its high nibble).
 
 Every W4A8 linear runs the hand-written CUDA kernel on the card
-(``ops/cuda/quant_matmul.py``). The W8A8 product is a library int8 GEMM
-(``torch._int_mm``), as it is an XLA dot and not a Pallas kernel in JAX.
+(``ops/cuda/quant_matmul.py``), and every quantized linear quantizes its
+activations with the kernel beside it there. The W8A8 product is a library
+int8 GEMM (``torch._int_mm``), as it is an XLA dot and not a Pallas kernel
+in JAX.
 
 Both products are ``torch.autograd.Function``s with the JAX package's
 straight-through VJP (``unigen_tpu/ops/quant.py:197-280``): dx = g W_deq^T,
@@ -70,12 +72,13 @@ def quantize_weight_int4(w: torch.Tensor) -> dict:
 
 
 def _quantize_act(x: torch.Tensor):
-    """Dynamic per-token symmetric activation quantization to int8."""
-    xf = x.to(torch.float32)
-    xmax = xf.abs().amax(dim=-1, keepdim=True)
-    xs = torch.where(xmax > 0, xmax / 127.0, torch.ones_like(xmax))
-    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
-    return xq, xs
+    """Dynamic per-token symmetric activation quantization to int8: x
+    [..., K] -> (xq int8 [..., K], xs f32 [..., 1]). CUDA tensors run the
+    quantization kernel, CPU tensors its plain version
+    (``quant_matmul.quantize_act_ref``)."""
+    k = x.shape[-1]
+    xq, xs = quant_matmul.quantize_act(x.reshape(-1, k).contiguous())
+    return xq.reshape(x.shape), xs.reshape(*x.shape[:-1], 1)
 
 
 def _check_2d(w: torch.Tensor, name: str):
