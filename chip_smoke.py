@@ -29,6 +29,25 @@ Phases, in order; any failure exits non-zero:
      inputs, and that forward and one with the plain versions on the same
      inputs agree within 3e-2 relative L2; a profiled forward gives the
      device time by kernel.
+  4b. pipeline: UniGenFluxPipeline on the same tree with a full-width
+     random VAE (fp32), CLIP-L and T5-XXL (bf16) and seeded stub
+     tokenizers: in each mode of PIPELINE_MODES (exact; "balanced", the
+     hybrid cache with int8 residuals; the control cache at interval 2;
+     the order-1 model cache at interval 2; the adaptive hybrid at two
+     thresholds) four b=1 requests at 512^2, 4 steps, prompts through
+     encode_prompt (the repeated condition prompt must hit the prompt
+     LRU), served by MicroBatchServer(batch_size=2): a "pipeline" line
+     with img/s, the ms of prompt encoding, VAE encode, denoise and VAE
+     decode (CUDA events), the full / base / skip steps, the residual
+     cache's bytes and the peak memory, and launch counts equal to
+     expected_pipeline_launches; one request through __call__ equal to
+     generate; pipeline_replay_check (a replay of bf16 residuals gives the
+     capture's bits, int8 / int4 within REPLAY_REL_L2), pipeline_composition
+     ("balanced" against its forward calls written out),
+     pipeline_path_check (every kernel call of a "balanced" generate
+     against its plain version), pipeline_vae_check (against the VAE in
+     fp64 on the card, with the TF32 flags in force) and pipeline_profile
+     (device time by group of an exact generate and of the text towers).
   5. train: the flow-matching fine-tune step of the same tree (the fp
      trainable subset in bf16, W4A8 frozen), 512^2, micro-batch 2,
      accumulation 2, remat "full", 1 warm-up + 4 timed micro-steps through
@@ -158,6 +177,24 @@ NOROPE_BWD_CASES = [
 # blocks of 141,591,808)
 FLUX_FULL_TRAINABLE = 145_202_432
 FLUX_FULL_BLOCKS_TRAINABLE = 1_702_672_640
+# a forward replaying int8 / int4 control residuals at the state they were
+# captured at stays within this relative L2 of the exact prediction
+# (tests/test_torch_port_cache.py holds JAX and the port to it on the CPU)
+REPLAY_REL_L2 = {8: 2e-2, 4: 2.5e-1}
+# the pipeline phase: four b=1 requests at 512^2, 4 steps, in each mode
+PIPE_RES = 512
+PIPELINE_MODES = [
+    ("exact", {}),
+    ("balanced", dict(quality_profile="balanced")),    # hybrid c=4, m=2, int8
+    ("control_interval_2", dict(control_cache_interval=2)),
+    ("model_interval_2_order_1", dict(model_cache_interval=2, model_cache_order=1)),
+    # under the random init the latent drifts about 0.0084 a step (the
+    # pipeline lines' adaptive_drifts), so: (a) full, base, base, full;
+    # (b) full, skip, base, skip
+    ("adaptive_hybrid_a", dict(control_cache_threshold=0.02, model_cache_threshold=0.007)),
+    ("adaptive_hybrid_b", dict(control_cache_threshold=0.03, model_cache_threshold=0.012))]
+# the fp32 VAE's encode and decode against the same modules in fp64
+VAE_REL_L2 = 1e-4
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 # 65536 registers / 384 threads, rounded down to the allocation unit of 8:
 # the register count at entry of the setmaxnreg kernels (24 x 128 + 240 x 256
@@ -1437,6 +1474,416 @@ def phase_slice(torch, dev):
     return params, launches
 
 
+class SeededTokenizer:
+    """A tokenizer's call signature (the card host has no transformers):
+    each prompt's ids are drawn from a generator seeded with ``seed`` and
+    the prompt's CRC, a few per word, then ``eos``, then 0 padding."""
+
+    def __init__(self, vocab: int, eos: int, seed: int):
+        self.vocab, self.eos, self.seed = vocab, eos, seed
+
+    def __call__(self, prompts, padding=None, max_length=None, truncation=None,
+                 return_tensors=None):
+        import zlib
+
+        import numpy as np
+        ids = np.zeros((len(prompts), max_length), np.int64)
+        for i, p in enumerate(prompts):
+            rng = np.random.default_rng([self.seed, zlib.crc32(p.encode())])
+            n = min(2 * len(p.split()) + 2, max_length - 1)
+            ids[i, :n] = rng.integers(2, self.vocab - 1, n)
+            ids[i, n] = self.eos
+
+        class Out:
+            input_ids = ids
+        return Out()
+
+
+def expected_replay_launches(params, cfg):
+    """Kernel launches of one UniGen-FLUX forward that replays cached control
+    residuals: the base blocks only (no MoE preprocess, no control block,
+    no add linear), at any batch."""
+    bb = cfg.flux
+    base = {"base": params["base"]}
+    rope = bb.num_layers + bb.num_single_layers
+    w4 = quantized_calls(base, cfg, "w_q4")
+    return {"flash_attention_rope": rope, "rope_rotate": rope, "flash_attention": 0,
+            "w4a8_matmul": w4, "w4a8_general": 0,
+            "quantize_act": w4 + quantized_calls(base, cfg, "w_q")}
+
+
+def expected_pipeline_launches(params, cfg, steps):
+    """Launches of a run of pipeline denoise loops: ``steps`` lists (batch,
+    n_full, n_base) per loop; a full step runs expected_launches, a base
+    step expected_replay_launches (one stream, no true CFG), a skip step
+    none."""
+    out = {}
+    replay = expected_replay_launches(params, cfg)
+    for batch, n_full, n_base in steps:
+        full = expected_launches(params, cfg, batch)
+        for k in set(full) | set(replay):
+            out[k] = out.get(k, 0) + n_full * full.get(k, 0) + n_base * replay.get(k, 0)
+    return nonzero(out)
+
+
+def step_kinds(mode, refreshes, steps):
+    """(n_full, n_base, n_skip) of one denoise loop from the pipeline's cache
+    mode (``pipelines.flux.resolve_cache_mode``) and its
+    ``last_cache_refreshes``: the control cache replays residuals between
+    refreshes, the model cache skips the transformer."""
+    if mode.exact:
+        return steps, 0, 0
+    if mode.hybrid:
+        return refreshes[0], refreshes[1], steps - sum(refreshes)
+    if mode.model_cache:
+        return refreshes, 0, steps - refreshes
+    return refreshes, steps - refreshes, 0
+
+
+@contextlib.contextmanager
+def drift_log(values):
+    """Append every drift the adaptive cache rules read to ``values``."""
+    from unigen_tpu_torch.pipelines import caching
+    real = caching.rel_change
+
+    def logged(lat, ref):
+        out = real(lat, ref)
+        values.append(round(out.item(), 6))
+        return out
+    caching.rel_change = logged
+    try:
+        yield
+    finally:
+        caching.rel_change = real
+
+
+def residual_cache_bytes(cfg, batch, s_img, s_txt, bits):
+    """Bytes of one stream's control-residual cache: the double blocks'
+    adds over the image tokens and the single blocks' over text and image,
+    bf16 (bits 16), or int8 / packed int4 codes with an fp32 scale a token."""
+    bb = cfg.flux
+    tokens = batch * (bb.num_layers * s_img + bb.num_single_layers * (s_img + s_txt))
+    per_token = {16: 2 * bb.inner_dim, 8: bb.inner_dim + 4, 4: bb.inner_dim // 2 + 4}
+    return tokens * per_token[bits]
+
+
+@contextlib.contextmanager
+def stage_timer(torch, pipe, stages):
+    """Record CUDA events around the pipeline's control encode, denoise and
+    decode (the instance's methods are wrapped); ``stages[name]`` collects
+    (start, end) pairs."""
+    names = {"encode_control": "vae_encode", "denoise": "denoise", "decode": "vae_decode"}
+
+    def wrap(method, name):
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = method(*a, **kw)
+            end.record()
+            stages.setdefault(name, []).append((start, end))
+            return out
+        return timed
+    for attr, name in names.items():
+        setattr(pipe, attr, wrap(getattr(pipe, attr), name))
+    try:
+        yield
+    finally:
+        for attr in names:
+            delattr(pipe, attr)
+
+
+def stage_ms(torch, stages):
+    torch.cuda.synchronize()
+    return {name: sum(s.elapsed_time(e) for s, e in pairs) for name, pairs in stages.items()}
+
+
+def conv_group(name):
+    """The pipeline profile's group of a CUDA kernel name."""
+    low = name.lower()
+    if any(t in low for t in ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit",
+                              "cudnn", "nchw", "nhwc")):
+        return "convolutions"
+    if "w4a8" in low:
+        return "w4a8_matmul"
+    if "quantize_act" in low:
+        return "quantize_act"
+    if "rope_rotate" in low:
+        return "rope_rotate"
+    if "flash_rope" in low:
+        return "flash_attention_rope"
+    if "flash" in low:
+        return "flash_attention"
+    if any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet")):
+        return "library gemm"
+    return "elementwise and other"
+
+
+def profile_groups(torch, fn):
+    """Device time by conv_group of one call of ``fn`` (torch.profiler), the
+    wall time of an unprofiled call beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = conv_group(e.name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall_ms, groups
+
+
+def phase_pipeline(torch, dev, params, seed):
+    """The FLUX pipeline end to end on phase 4's W4A8 flux_full tree, with a
+    full-width random VAE (fp32), CLIP-L and T5-XXL (bf16) from ``seed`` and
+    seeded stub tokenizers: in each mode of PIPELINE_MODES four b=1
+    requests at 512^2, 4 steps, their prompts through encode_prompt (the
+    repeated condition prompt hits the prompt LRU), served by
+    MicroBatchServer(batch_size=2); the launch counters must equal the
+    formula of the steps taken. Then the replay, composition, path, VAE
+    and profile checks. Every check stops the run."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.models import vae as vae_lib
+    from unigen_tpu_torch.models.clip_text import CLIPTextConfig, init_clip_params
+    from unigen_tpu_torch.models.t5_text import T5Config, init_t5_params
+    from unigen_tpu_torch.pipelines import scheduling
+    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline, resolve_cache_mode
+    from unigen_tpu_torch.serving import MicroBatchServer
+    from unigen_tpu_torch.utils import param_bytes, tree_map
+
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.time()
+    vae_cfg, clip_cfg, t5_cfg = vae_lib.VAEConfig(), CLIPTextConfig(), T5Config()
+    pipe = UniGenFluxPipeline(
+        cfg=cfg, params=params, vae_cfg=vae_cfg,
+        vae_params=vae_lib.init_vae_params(vae_cfg, gen=gen, device=dev),
+        clip_cfg=clip_cfg, clip_params=init_clip_params(clip_cfg, gen=gen, device=dev,
+                                                        dtype=torch.bfloat16),
+        t5_cfg=t5_cfg, t5_params=init_t5_params(t5_cfg, gen=gen, device=dev,
+                                                dtype=torch.bfloat16),
+        tokenizer=SeededTokenizer(clip_cfg.vocab_size, clip_cfg.eos_token_id, seed),
+        tokenizer_2=SeededTokenizer(t5_cfg.vocab_size, 1, seed + 1),
+        prompt_cache_size=64, device=dev)
+    torch.cuda.synchronize()
+    sizes = {k: param_bytes(getattr(pipe, k)) for k in ("vae_params", "clip_params",
+                                                         "t5_params")}
+    print(f"# pipeline: VAE, CLIP-L, T5-XXL built in {time.time() - t0:.1f}s: "
+          f"{sizes}", flush=True)
+    host = torch.Generator().manual_seed(seed + 5)
+    pixels = [torch.rand(1, 3, PIPE_RES, PIPE_RES, generator=host) * 2 - 1
+              for _ in range(N_REQUESTS)]
+    s_img = (PIPE_RES // (2 * vae_cfg.downscale)) ** 2
+
+    # warm-up: a b=2 "balanced" generate runs both forward kinds and the VAE
+    # (cuDNN picks its algorithms)
+    e, p = pipe.encode_prompt(["warm-up a", "warm-up b"])
+    c = pipe.encode_condition_prompt(["canny", "canny"])
+    pipe.generate(prompt_embeds=e, pooled=p, cond_pooled=c,
+                  control_pixels=torch.cat(pixels[:BATCH]), height=PIPE_RES,
+                  width=PIPE_RES, num_inference_steps=STEPS, quality_profile="balanced")
+    torch.cuda.synchronize()
+
+    for name, knobs in PIPELINE_MODES:
+        mode = resolve_cache_mode(STEPS, **knobs)
+        refreshes, stages, drifts = [], {}, []
+
+        def run(x, knobs=knobs):
+            out = pipe.generate(**x, height=PIPE_RES, width=PIPE_RES,
+                                num_inference_steps=STEPS, **knobs)
+            refreshes.append((x["pooled"].shape[0], pipe.last_cache_refreshes))
+            return out
+
+        srv = MicroBatchServer(run, batch_size=BATCH, max_wait_ms=50)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        hits = pipe._prompt_cache.hits
+        try:
+            with stage_timer(torch, pipe, stages), drift_log(drifts):
+                t0 = time.perf_counter()
+                enc_start = torch.cuda.Event(enable_timing=True)
+                enc_end = torch.cuda.Event(enable_timing=True)
+                enc_start.record()
+                reqs = []
+                for r in range(N_REQUESTS):
+                    e, p = pipe.encode_prompt(f"{name} request {r}: a photo of a red cube")
+                    reqs.append(dict(prompt_embeds=e, pooled=p,
+                                     cond_pooled=pipe.encode_condition_prompt("canny"),
+                                     control_pixels=pixels[r]))
+                enc_end.record()
+                outs = [f.result(timeout=900) for f in [srv.submit(**r) for r in reqs]]
+                wall = time.perf_counter() - t0
+        finally:
+            srv.close()
+        launches = nonzero(launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        ms = stage_ms(torch, stages)
+        ms["prompt_encoding"] = enc_start.elapsed_time(enc_end)
+        kinds = [(b, *step_kinds(mode, ref, STEPS)) for b, ref in refreshes]
+        want = expected_pipeline_launches(params, cfg, [k[:3] for k in kinds])
+        cached = mode.hybrid or not (mode.exact or mode.model_cache)
+        res_bytes = residual_cache_bytes(cfg, BATCH, s_img, SEQ_TXT, mode.bits) if cached else 0
+        emit(dict(phase="pipeline", mode=name, knobs=knobs, requests=N_REQUESTS,
+                  batches=srv.stats.batches, steps=STEPS, resolution=PIPE_RES,
+                  wall_ms=wall * 1e3, images_per_s=N_REQUESTS / wall, stage_ms=ms,
+                  steps_per_batch=[dict(batch=b, n_full=f, n_base=n, n_skip=s)
+                                   for b, f, n, s in kinds],
+                  residual_cache_bytes=res_bytes, residual_bits=mode.bits if cached else None,
+                  adaptive_drifts=drifts,
+                  peak_bytes=peak, prompt_cache_hits=pipe._prompt_cache.hits - hits,
+                  launches=launches, expected_launches=want,
+                  out_shape=list(outs[0].shape)))
+        for o in outs:
+            if o.dtype != torch.uint8 or tuple(o.shape) != (1, PIPE_RES, PIPE_RES, 3):
+                raise SystemExit(f"pipeline {name}: bad output {o.dtype} {tuple(o.shape)}")
+        if launches != want or srv.stats.batches != N_REQUESTS // BATCH:
+            raise SystemExit(f"pipeline {name}: launches {launches} != expected {want} "
+                             f"({srv.stats.batches} batches, steps {kinds})")
+        if pipe._prompt_cache.hits - hits < N_REQUESTS - 1:
+            raise SystemExit(f"pipeline {name}: the condition prompt missed the LRU")
+
+    # one request through __call__: the same bits as generate on its encodings
+    # and the latents drawn from the same seed
+    img = pipe("a photo of a red cube", "canny", pixels[0], height=PIPE_RES,
+               width=PIPE_RES, num_inference_steps=STEPS, seed=seed)
+    e, p = pipe.encode_prompt("a photo of a red cube")
+    want_img = pipe.generate(prompt_embeds=e, pooled=p,
+                             cond_pooled=pipe.encode_condition_prompt("canny"),
+                             control_pixels=pixels[0].to(dev, pipe.dtype),
+                             height=PIPE_RES, width=PIPE_RES, num_inference_steps=STEPS,
+                             seed=seed)
+    emit(dict(phase="pipeline_call", same_bits_as_generate=torch.equal(img, want_img),
+              out_shape=list(img.shape)))
+    if not torch.equal(img, want_img):
+        raise SystemExit("pipeline: __call__ differs from generate")
+
+    one = dict(prompt_embeds=e, pooled=p, cond_pooled=pipe.encode_condition_prompt("canny"),
+               control_pixels=pixels[0], height=PIPE_RES, width=PIPE_RES,
+               num_inference_steps=STEPS, seed=seed)
+    real_denoise = pipe.denoise
+
+    # replay: at the first step's state, a capturing forward and forwards
+    # replaying its residuals (bf16: the same bits; int8/int4: within the
+    # bound the CPU tests hold JAX and the port to); beside them, how far the
+    # quantized residuals are from the bf16 ones
+    from unigen_tpu_torch.ops.quant import dequantize_residual
+    replay, exact_res = {}, None
+
+    def replay_check(mode, latents, fwd, streams, sigmas, num_steps, cfg_scale):
+        for bits in (16, 8, 4):
+            pred, outs = fwd(latents, 0, *streams[0], return_control_residuals=True,
+                             control_residuals_bits=bits)
+            res = outs["control_residuals"]
+            again = fwd(latents, 0, *streams[0], control_residuals=res)[0]
+            nbytes = sum(t.numel() * t.element_size() for r in res
+                         for t in (r.values() if isinstance(r, dict) else [r]))
+            rel = ((again.float() - pred.float()).norm() / pred.float().norm()).item()
+            if bits == 16:
+                exact_res = res
+            # in fp64: under the random init the residuals reach ~1e20, past
+            # what an fp32 sum of squares holds
+            deq = [dequantize_residual(r, torch.float64) if isinstance(r, dict) else r.double()
+                   for r in res]
+            res_rel = math.sqrt(sum((a - b.double()).square().sum().item()
+                                    for a, b in zip(deq, exact_res))
+                                / sum(b.double().square().sum().item() for b in exact_res))
+            replay[bits] = dict(rel_l2=rel, same_bits=torch.equal(again, pred),
+                                residual_rel_l2=res_rel,
+                                residual_max_abs=max(r.abs().max().item() for r in deq),
+                                bytes=nbytes, bytes_expected=residual_cache_bytes(
+                                    cfg, 1, s_img, SEQ_TXT, bits),
+                                bound=0.0 if bits == 16 else REPLAY_REL_L2[bits])
+        return real_denoise(mode, latents, fwd, streams, sigmas, num_steps, cfg_scale)
+    pipe.denoise = replay_check
+    pipe.generate(**one)
+    del pipe.denoise
+    emit(dict(phase="pipeline_replay_check", state="step 0 of a b=1 request", **{
+        f"bits_{b}": r for b, r in replay.items()}))
+    if not replay[16]["same_bits"] or any(
+            r["rel_l2"] > r["bound"] or r["bytes"] != r["bytes_expected"]
+            or not r["residual_rel_l2"] > 0 for b, r in replay.items() if b != 16):
+        raise SystemExit(f"pipeline: replay check failed: {replay}")
+
+    # composition: "balanced" (c=4, m=2, int8) written out as forward calls:
+    # full at step 0, base replaying its residuals at 2, the held
+    # prediction at 1 and 3
+    def composed(mode, lat, fwd, streams, sigmas, num_steps, cfg_scale):
+        pred, outs = fwd(lat, 0, *streams[0], return_control_residuals=True,
+                         control_residuals_bits=8)
+        lat = scheduling.euler_step(lat, pred, sigmas[0], sigmas[1])
+        lat = scheduling.euler_step(lat, pred, sigmas[1], sigmas[2])
+        pred = fwd(lat, 2, *streams[0], control_residuals=outs["control_residuals"])[0]
+        lat = scheduling.euler_step(lat, pred, sigmas[2], sigmas[3])
+        return scheduling.euler_step(lat, pred, sigmas[3], sigmas[4])
+    reset_launch_counts()
+    balanced = pipe.generate(**one, quality_profile="balanced")
+    gen_launches = nonzero(launch_counts())
+    pipe.denoise = composed
+    reset_launch_counts()
+    by_hand = pipe.generate(**one)
+    hand_launches = nonzero(launch_counts())
+    del pipe.denoise
+    want = expected_pipeline_launches(params, cfg, [(1, 1, 1)])
+    emit(dict(phase="pipeline_composition", mode="balanced", same_bits=torch.equal(
+        balanced, by_hand), launches=gen_launches, composition_launches=hand_launches,
+        expected_launches=want,
+        full_forward_launches=nonzero(expected_launches(params, cfg, 1)),
+        replay_forward_launches=nonzero(expected_replay_launches(params, cfg))))
+    if not torch.equal(balanced, by_hand) or not gen_launches == hand_launches == want:
+        raise SystemExit("pipeline: balanced generate differs from its composition")
+
+    # path check: every kernel call of a balanced generate (a full and a
+    # base-with-replay forward) against its plain version
+    checks = {}
+    with shadowed_kernels(torch, checks):
+        pipe.generate(**one, quality_profile="balanced")
+    path_check = path_check_summary(checks)
+    emit(dict(phase="pipeline_path_check", mode="balanced", **path_check))
+    if any(c["disagree"] or not c["calls"] for c in path_check.values()) \
+            or {n: c["calls"] for n, c in path_check.items()} != {
+                n: want[n] for n in ("flash_attention_rope", "w4a8_matmul", "quantize_act")}:
+        raise SystemExit(f"pipeline: a kernel disagrees with its plain version: "
+                         f"{path_check}")
+
+    # VAE: the fp32 modules against the same weights in fp64 on the card
+    vae64 = tree_map(lambda t: t.double(), pipe.vae_params)
+    px = pixels[0].to(dev)
+    with torch.no_grad():
+        z32 = vae_lib.vae_encode(pipe.vae_params, vae_cfg, px)
+        z64 = vae_lib.vae_encode(vae64, vae_cfg, px.double())
+        x32 = vae_lib.vae_decode(pipe.vae_params, vae_cfg, z32)
+        x64 = vae_lib.vae_decode(vae64, vae_cfg, z32.double())
+    vae = {n: dict(rel_l2=((a.double() - b).norm() / b.norm()).item(),
+                   max_abs_err=(a.double() - b).abs().max().item(),
+                   max_abs=b.abs().max().item())
+           for n, a, b in (("encode", z32, z64), ("decode", x32, x64))}
+    emit(dict(phase="pipeline_vae_check", reference="the same modules in fp64 on the card",
+              tolerance_rel_l2=VAE_REL_L2, cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32, **vae))
+    if any(not (v["rel_l2"] <= VAE_REL_L2) for v in vae.values()):
+        raise SystemExit(f"pipeline: the VAE is off its fp64 version: {vae}")
+    del vae64
+
+    # profile: device time by group of one exact b=1 generate, and of the
+    # text towers encoding one new prompt
+    text_wall, text = profile_groups(torch, lambda: pipe.encode_prompt(
+        f"profiled prompt {time.time()}"))
+    wall, groups = profile_groups(torch, lambda: pipe.generate(**one))
+    busy = sum(groups.values())
+    emit(dict(phase="pipeline_profile", mode="exact", batch=1, wall_ms=wall,
+              device_busy_ms=busy, device_idle_share=1 - busy / wall,
+              groups_ms=groups, text_towers=dict(wall_ms=text_wall,
+                                                 device_busy_ms=sum(text.values()),
+                                                 groups_ms=text)))
+
+
 def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
     """The full-width fine-tune step (bench.py run_full's configuration) of
     ``cfg`` on its W4A8 serving tree: trainable = its float leaves (bf16),
@@ -1930,6 +2377,11 @@ def main() -> int:
 
     # 4. the serving slice
     params, serving = phase_slice(torch, dev)
+
+    # 4b. the FLUX pipeline on the same tree (the text towers are freed
+    # before phase 5)
+    phase_pipeline(torch, dev, params, args.seed)
+    torch.cuda.empty_cache()
 
     # 5. the training slice
     launches = phase_train(torch, dev, presets.flux_full(), params, args.seed,

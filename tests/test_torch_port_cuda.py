@@ -2,7 +2,10 @@
 NVIDIA card (the rotation pass, the RoPE attention forward and its
 backward, the rope-free
 attention forward and its backward at head dim 64 and 128, the W4A8
-matmul on both its kernels, and the activation quantization). Marked ``cuda``; without a card they skip. This file imports no
+matmul on both its kernels, and the activation quantization), and the
+pipeline slice on the card (the residual quantization against the CPU's
+bits, capture and replay, the launches of a "balanced" generate). Marked
+``cuda``; without a card they skip. This file imports no
 JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -444,3 +447,106 @@ def test_misaligned_operand_raises_on_card(card, monkeypatch, which):
         t_fa.flash_attention_bwd(x["q"], x["k"], x["v"], out, lse, x["do"])
     assert (t_fa.norope_launches, t_fa.norope_dq_launches, t_fa.launches,
             t_fa.rotate_launches) == before
+
+
+# ---------------------------------------------------------------- the pipeline
+
+def _residual_rows(device):
+    """Gaussian rows, a zero row, rows at +-amax, .5 ties at the int8 and
+    int4 scales 1 (amax 127 and 7)."""
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(8, 3072, device=device, generator=g)
+    x[1] = 0.0
+    x[2, 5], x[2, 900] = 40.0, -40.0
+    for row, top in ((3, 127.0), (4, 7.0)):
+        x[row] = torch.randint(-6, 6, (3072,), device=device, generator=g) + 0.5
+        x[row, 0] = top
+    return x.reshape(2, 4, 3072)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_residual_on_card_equals_cpu(card, bits, dtype):
+    """Codes and scales of the residual cache on the card equal the CPU's
+    bit for bit: the scale divides by a device tensor, not by a Python
+    number (which the card would multiply by its reciprocal)."""
+    from unigen_tpu_torch.ops.quant import dequantize_residual, quantize_residual
+    r = _residual_rows(card).to(dtype)
+    got, want = quantize_residual(r, bits), quantize_residual(r.cpu(), bits)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert torch.equal(dequantize_residual(got, dtype).cpu(),
+                       dequantize_residual(want, dtype))
+
+
+def _few_block_flux(card):
+    """flux_full's widths (3072, 24 heads x 128, W4A8) at 2 double and 4
+    single base blocks (1 + 2 control blocks), random serving weights."""
+    import dataclasses
+
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.io.from_jax import init_quantized_serving_params
+    cfg = presets.flux_full()
+    cfg = dataclasses.replace(cfg, flux=dataclasses.replace(
+        cfg.flux, num_layers=2, num_single_layers=4))
+    params = init_quantized_serving_params(
+        cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_capture_then_replay_same_bits_on_card(card):
+    """A capturing forward and one replaying its bf16 residuals give the
+    same bits; the replay launches the base blocks' kernels only."""
+    import chip_smoke
+    from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
+    from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+    cfg, params = _few_block_flux(card)
+    bb = cfg.flux
+    g = torch.Generator(device=card).manual_seed(1)
+
+    def mk(*shape):
+        return torch.randn(*shape, device=card, generator=g).bfloat16()
+    ids = prepare_latent_image_ids(16, 16, device=card)
+    args = (mk(2, 256, bb.in_channels), mk(2, 256, bb.in_channels),
+            mk(2, 64, bb.joint_attention_dim), mk(2, bb.pooled_projection_dim),
+            mk(2, bb.pooled_projection_dim), torch.full((2,), 0.75, device=card).bfloat16(),
+            ids, torch.zeros(64, 3, device=card), ids)
+    with torch.no_grad():
+        pred, _, outs = unigen_flux_forward(params, cfg, *args, return_control_residuals=True)
+        chip_smoke.reset_launch_counts()
+        again, _, _ = unigen_flux_forward(params, cfg, *args,
+                                          control_residuals=outs["control_residuals"])
+        torch.cuda.synchronize()
+    assert torch.equal(again, pred)
+    assert chip_smoke.nonzero(chip_smoke.launch_counts()) == chip_smoke.nonzero(
+        chip_smoke.expected_replay_launches(params, cfg))
+
+
+@pytest.mark.cuda
+def test_generate_balanced_launches_the_formula_on_card(card):
+    """A b=2 "balanced" generate (a full forward at step 0, a base forward
+    replaying int8 residuals at step 2, holds at 1 and 3) launches what
+    chip_smoke.expected_pipeline_launches counts, and gives uint8 images."""
+    import chip_smoke
+    from unigen_tpu_torch.models.vae import VAEConfig, init_vae_params
+    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline
+    cfg, params = _few_block_flux(card)
+    bb = cfg.flux
+    vae_cfg = VAEConfig(block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8)
+    g = torch.Generator(device=card).manual_seed(2)
+    pipe = UniGenFluxPipeline(cfg=cfg, params=params, vae_cfg=vae_cfg,
+                              vae_params=init_vae_params(vae_cfg, gen=g, device=card),
+                              device=card)
+    x = dict(prompt_embeds=torch.randn(2, 64, bb.joint_attention_dim, device=card, generator=g),
+             pooled=torch.randn(2, bb.pooled_projection_dim, device=card, generator=g),
+             cond_pooled=torch.randn(2, bb.pooled_projection_dim, device=card, generator=g),
+             control_pixels=torch.rand(2, 3, 64, 64, device=card, generator=g) * 2 - 1)
+    chip_smoke.reset_launch_counts()
+    img = pipe.generate(**x, height=64, width=64, num_inference_steps=4,
+                        quality_profile="balanced")
+    assert pipe.last_cache_refreshes == (1, 1)
+    assert img.dtype == torch.uint8 and tuple(img.shape) == (2, 64, 64, 3)
+    assert chip_smoke.nonzero(chip_smoke.launch_counts()) == \
+        chip_smoke.expected_pipeline_launches(params, cfg, [(2, 1, 1)])

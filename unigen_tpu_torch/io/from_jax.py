@@ -4,8 +4,12 @@ directly on the card.
 ``tree_from_numpy`` takes the nested dict of numpy arrays that
 ``jax.tree.map(np.asarray, params)`` gives and returns the port's tree with
 the same keys, dtypes and shapes: bf16 (``ml_dtypes.bfloat16``) becomes
-``torch.bfloat16`` bit for bit, int8 codes stay int8, and None leaves (the
-two halves of ``split_trainable``) stay None. ``opt_state_from_optax`` does
+``torch.bfloat16`` bit for bit, int8 codes stay int8, lists (the VAE's
+block lists) stay lists, and None leaves (the two halves of
+``split_trainable``) stay None. The UniGen, VAE, CLIP and T5 trees of the
+JAX package all move this way; the port's ``init_vae_params``,
+``init_clip_params`` and ``init_t5_params`` fill the same layouts on a
+device directly. ``opt_state_from_optax`` does
 the same for an optax ``MultiSteps(chain(clip_by_global_norm, adamw))``
 state (or the chain alone) after ``jax.tree.map(np.asarray, state)``,
 giving the port's ``train_step.OptState``. This module never imports JAX.

@@ -21,14 +21,15 @@ control context; multi-condition inputs carry a leading condition
 axis, and their expert outputs and condition tembs are summed.
 ``remat`` checkpoints each double and single body (base block + control
 block + gated add) as the JAX scan bodies are; ``training`` routes the MoE
-with its training capacity. Control-residual capture and replay wait for the
-caching slice.
+with its training capacity. ``control_residuals`` /
+``return_control_residuals`` replay and capture the control branch's
+per-block adds for the pipeline's step caches.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -46,6 +47,8 @@ from unigen_tpu_torch.models import moe as moe_lib
 from unigen_tpu_torch.models.flux import (flux_embed_inputs, flux_rope,
                                           init_flux_params)
 from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+from unigen_tpu_torch.ops.quant import (dequantize_residual, quantize_residual,
+                                        residual_at, stack_residuals)
 from unigen_tpu_torch.pipelines import scheduling
 from unigen_tpu_torch.utils import (index_params, init_stacked, remat_wrap,
                                     resolve_device, tree_map)
@@ -206,22 +209,53 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                         conditioning_scale: float = 1.0, remat=False,
                         training: bool = False,
                         control_residuals=None,
-                        return_control_residuals: bool = False):
+                        return_control_residuals: bool = False,
+                        control_residuals_bits: int = 16):
     """Full UniGenFlux forward -> (pred [B, S, C], add_losses, add_outputs).
     condition/condition_pooled/condition_ids may carry a leading condition
     axis for multi-condition control. ``remat`` is ``utils.remat_wrap``'s
     policy for the block bodies; ``training`` selects the MoE's training
-    capacity."""
-    if control_residuals is not None or return_control_residuals:
-        raise NotImplementedError(
-            "control-residual capture and replay wait for the caching slice")
+    capacity.
+
+    Control-residual step caching (the serving caches of the pipeline):
+      * ``return_control_residuals=True`` also returns the UNSCALED
+        per-block control adds in ``add_outputs["control_residuals"]`` as
+        ``(dbl [n_base, B, S_img, D], sgl [n_single, B, S_txt + S_img, D])``;
+        with ``control_residuals_bits`` 8 or 4 each block's add is quantized
+        as it is made (``ops/quant.quantize_residual``), so each leaf is a
+        ``{"q"/"q4", "s"}`` dict of stacks.
+      * ``control_residuals=(dbl, sgl)`` skips the MoE preprocess and every
+        control block and adds the cached residuals, times the CURRENT
+        conditioning scale, at the same sites; quantized leaves are
+        dequantized per block. ``moe_loss`` is then zero and
+        ``expert_counts`` None.
+    Replaying bf16 residuals captured at the same state gives the plain
+    forward's bits."""
     _check_supported(cfg)
+    reuse = control_residuals is not None
+    if reuse and return_control_residuals:
+        raise ValueError("pass either control_residuals or "
+                         "return_control_residuals, not both")
+    if control_residuals_bits not in (4, 8, 16):
+        raise ValueError(f"control_residuals_bits must be 4, 8 or 16, "
+                         f"got {control_residuals_bits}")
     base, ctrl = params["base"], params["control"]
     bb, cc = cfg.flux, cfg.control
     heads = bb.num_attention_heads
+    single_ctrl = cc.use_single_trans_blocks and "single_blocks" in ctrl
+    if return_control_residuals and not single_ctrl:
+        raise ValueError("control-residual caching requires the single-block "
+                         "control path")
     # an fp32 scale must not promote the bf16 residual stream
     scale = torch.as_tensor(conditioning_scale, dtype=hidden.dtype,
                             device=hidden.device)
+    def capture(r):
+        return r if control_residuals_bits == 16 else quantize_residual(
+            r, control_residuals_bits)
+
+    def replayed(res, i):
+        r = residual_at(res, i)
+        return dequantize_residual(r, hidden.dtype) if isinstance(r, dict) else r
 
     h, enc, temb = flux_embed_inputs(base, bb, hidden, encoder, pooled,
                                      timestep, guidance)
@@ -234,24 +268,41 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
 
     enc, h = flux_double_block(index_params(base["double_blocks"], 0), h, enc,
                                temb, rope_base, heads=heads)
-    pre = preprocess_moe(ctrl, cfg, h, enc, condition, pooled, condition_pooled,
-                         timestep, guidance, img_ids, txt_ids, condition_ids,
-                         training=training)
-    _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
-                                  pre.moe_hidden, pre.control_enc,
-                                  pre.block_temb, rope_cn_double, heads=heads,
-                                  context_first=False)
-    h = h + linear(index_params(ctrl["add_double"], 0), cn_out) * scale
+    dbl_ys, sgl_ys = [], []
+    if reuse:
+        dbl_res, sgl_res = control_residuals
+        pre = None
+        h = h + replayed(dbl_res, 0) * scale
 
-    def double_body(h, enc, i):
-        enc, h = flux_double_block(index_params(base["double_blocks"], i), h,
-                                   enc, temb, rope_base, heads=heads)
-        j = cn_table[i]
-        _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], j), h,
-                                      pre.control_enc, pre.block_temb,
-                                      rope_cn_double, heads=heads,
-                                      context_first=False)
-        return h + linear(index_params(ctrl["add_double"], j), cn_out) * scale, enc
+        def double_body(h, enc, i):
+            enc, h = flux_double_block(index_params(base["double_blocks"], i), h,
+                                       enc, temb, rope_base, heads=heads)
+            return h + replayed(dbl_res, i) * scale, enc
+    else:
+        pre = preprocess_moe(ctrl, cfg, h, enc, condition, pooled,
+                             condition_pooled, timestep, guidance, img_ids,
+                             txt_ids, condition_ids, training=training)
+        _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
+                                      pre.moe_hidden, pre.control_enc,
+                                      pre.block_temb, rope_cn_double,
+                                      heads=heads, context_first=False)
+        res = linear(index_params(ctrl["add_double"], 0), cn_out)
+        if return_control_residuals:
+            dbl_ys.append(capture(res))
+        h = h + res * scale
+
+        def double_body(h, enc, i):
+            enc, h = flux_double_block(index_params(base["double_blocks"], i), h,
+                                       enc, temb, rope_base, heads=heads)
+            j = cn_table[i]
+            _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], j), h,
+                                          pre.control_enc, pre.block_temb,
+                                          rope_cn_double, heads=heads,
+                                          context_first=False)
+            res = linear(index_params(ctrl["add_double"], j), cn_out)
+            if return_control_residuals:
+                dbl_ys.append(capture(res))
+            return h + res * scale, enc
 
     double_body = remat_wrap(double_body, remat)
     for i in range(1, n_base):
@@ -260,7 +311,20 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     stream = torch.cat([enc, h], dim=1)
     enc_len = enc.shape[1]
     n_s = bb.num_single_layers
-    if cc.use_single_trans_blocks and "single_blocks" in ctrl:
+
+    def single_add(stream, zc):
+        if cc.single_block_control_method == "overall_add":
+            return stream + zc
+        # single_add: image section only
+        return torch.cat([stream[:, :enc_len], stream[:, enc_len:] + zc[:, enc_len:]],
+                         dim=1)
+
+    if single_ctrl and reuse:
+        def single_body(stream, i):
+            stream = flux_single_block(index_params(base["single_blocks"], i),
+                                       stream, temb, rope_base, heads=heads)
+            return single_add(stream, replayed(sgl_res, i) * scale)
+    elif single_ctrl:
         cn_s_table = control_block_index_table(n_s, n_s // cc.single_control_dev)
 
         def single_body(stream, i):
@@ -270,12 +334,10 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
             cn_out = flux_single_block(index_params(ctrl["single_blocks"], j),
                                        stream, pre.block_temb, rope_single,
                                        heads=heads)
-            zc = linear(index_params(ctrl["add_single"], j), cn_out) * scale
-            if cc.single_block_control_method == "overall_add":
-                return stream + zc
-            # single_add: image section only
-            return torch.cat([stream[:, :enc_len],
-                              stream[:, enc_len:] + zc[:, enc_len:]], dim=1)
+            res = linear(index_params(ctrl["add_single"], j), cn_out)
+            if return_control_residuals:
+                sgl_ys.append(capture(res))
+            return single_add(stream, res * scale)
     else:
         def single_body(stream, i):
             return flux_single_block(index_params(base["single_blocks"], i),
@@ -287,8 +349,15 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
 
     h = adaln_continuous(base["norm_out"], stream[:, enc_len:], temb)
     pred = linear(base["proj_out"], h)
-    add_losses = {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight}
-    return pred, add_losses, {"expert_counts": pre.expert_counts}
+    if reuse:
+        return (pred, {"moe_loss": torch.zeros((), dtype=torch.float32,
+                                               device=pred.device)},
+                {"expert_counts": None})
+    add_outputs = {"expert_counts": pre.expert_counts}
+    if return_control_residuals:
+        add_outputs["control_residuals"] = (stack_residuals(dbl_ys),
+                                            stack_residuals(sgl_ys))
+    return pred, {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight}, add_outputs
 
 
 class UniGenFlux(nn.Module):
@@ -315,23 +384,28 @@ class UniGenFlux(nn.Module):
 
     @torch.no_grad()
     def denoise(self, latents, condition, encoder, pooled, cond_pooled, *,
-                num_steps: int = 4,
+                num_steps: int = 4, latent_hw: Optional[Tuple[int, int]] = None,
                 sched: scheduling.FlowMatchConfig = scheduling.FlowMatchConfig(shift=1.0)
                 ) -> torch.Tensor:
         """The serving program: ``num_steps`` Euler steps of the forward on
-        packed latents [B, S, C] over a square latent grid, text ids zero,
-        condition ids = image ids. Inputs are cast to the model dtype on the
-        model's device; the timestep is rounded to that dtype, as the
-        reference denoise does."""
+        packed latents [B, S, C] of a latent grid ``latent_hw`` = (lh, lw)
+        (S = lh/2 * lw/2; square when not given), text ids zero, condition
+        ids = image ids. Inputs are cast to the model dtype on the model's
+        device; the timestep is rounded to that dtype, as the reference
+        denoise does."""
         dev, dt = self.device, self.dtype
         latents, condition, encoder, pooled, cond_pooled = (
             torch.as_tensor(x).to(dev, dt)
             for x in (latents, condition, encoder, pooled, cond_pooled))
         b, s = latents.shape[:2]
-        hw = math.isqrt(s)
-        if hw * hw != s:
-            raise ValueError(f"denoise needs a square latent grid, got S={s}")
-        img_ids = prepare_latent_image_ids(hw, hw, device=dev)
+        if latent_hw is None:
+            half = math.isqrt(s)
+            latent_hw = (2 * half, 2 * half)
+        lh, lw = latent_hw
+        if (lh // 2) * (lw // 2) != s:
+            raise ValueError(f"latent grid {lh}x{lw} does not pack to S={s} tokens; "
+                             "pass latent_hw=(lh, lw)")
+        img_ids = prepare_latent_image_ids(lh // 2, lw // 2, device=dev)
         txt_ids = torch.zeros(encoder.shape[-2], 3, device=dev)
         sig, _ = scheduling.inference_sigmas(sched, num_steps)
         for i in range(num_steps):

@@ -12,8 +12,9 @@ MoE with global routing, the shared-expert weave) runs once, after base
 block 0. ``cn2base_method="CrossAttn"`` also feeds each control output as
 KV-append condition tokens into the NEXT base block's attention, whose
 ``condition_k``/``condition_v`` projections live in ``control["cross_kv"]``.
-Timesteps are on the 0..1000 scale. Control-residual capture and replay
-wait for the caching slice; the UniGenBase variant is not ported.
+Timesteps are on the 0..1000 scale. ``control_residuals`` /
+``return_control_residuals`` replay and capture the control blocks'
+outputs for the step caches; the UniGenBase variant is not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ from unigen_tpu_torch.models import moe as moe_lib
 from unigen_tpu_torch.models.sd3 import (init_sd3_params, sd3_block_list,
                                          sd3_embed_inputs)
 from unigen_tpu_torch.models.unigen_flux import control_block_index_table
+from unigen_tpu_torch.ops.quant import (dequantize_residual, quantize_residual,
+                                        residual_at, stack_residuals)
 from unigen_tpu_torch.ops.packing import unpatchify
 from unigen_tpu_torch.pipelines import scheduling
 from unigen_tpu_torch.utils import (index_params, init_stacked, resolve_device,
@@ -188,13 +191,26 @@ def unigen_sd3_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                        encoder, pooled, condition_pooled, timestep, *,
                        conditioning_scale=1.0, training: bool = False,
                        control_residuals=None,
-                       return_control_residuals: bool = False):
+                       return_control_residuals: bool = False,
+                       control_residuals_bits: int = 16):
     """The interleaved UniGenSD3 forward: hidden and condition [B, C, H, W],
     encoder [B, T, joint_dim], timestep [B] on 0..1000 -> (pred
-    [B, out_ch, H, W], add_losses, add_outputs)."""
-    if control_residuals is not None or return_control_residuals:
-        raise NotImplementedError(
-            "control-residual capture and replay wait for the caching slice")
+    [B, out_ch, H, W], add_losses, add_outputs).
+
+    Control-residual step caching, as ``unigen_flux_forward``'s: the cache
+    is each base block's RAW control block output ``cn_out`` (before the add
+    linear, unscaled), stacked [n_base, B, S_img, D], so one cache serves
+    the ``add`` and the ``CrossAttn`` merges; ``return_control_residuals``
+    captures it (quantized per block when ``control_residuals_bits`` < 16),
+    ``control_residuals`` replays it, skipping the MoE preprocess and every
+    control joint block but not the add linears."""
+    reuse = control_residuals is not None
+    if reuse and return_control_residuals:
+        raise ValueError("pass either control_residuals or "
+                         "return_control_residuals, not both")
+    if control_residuals_bits not in (4, 8, 16):
+        raise ValueError(f"control_residuals_bits must be 4, 8 or 16, "
+                         f"got {control_residuals_bits}")
     base, ctrl = params["base"], params["control"]
     bb, cc = cfg.sd3, cfg.control
     if not cc.use_encoder_hidden_states:
@@ -209,22 +225,30 @@ def unigen_sd3_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     h, enc, temb = sd3_embed_inputs(base, bb, hidden, encoder, pooled, timestep)
     table = control_block_index_table(bb.num_layers, _n_control(cfg))
     cross = cc.cn2base_method == "CrossAttn"
-    pre, cond_kv = None, None
+    pre, cond_kv, cn_ys = None, None, []
     for i, block in enumerate(sd3_block_list(base, bb)):
         if cross and "cross_kv" in ctrl:
             block = {**block, "attn": {**block["attn"], **ctrl["cross_kv"][i]}}
         enc_out, h = sd3_joint_block(block, h, enc, temb, heads=heads,
                                      condition_kv_states=cond_kv)
         enc = enc_out if enc_out is not None else enc
-        if pre is None:
-            pre = _preprocess_sd3(ctrl, cfg, h, enc, condition, pooled,
-                                  condition_pooled, timestep, training=training)
-            cn_in = pre.moe_hidden
+        if reuse:
+            cn_out = residual_at(control_residuals, i)
+            if isinstance(cn_out, dict):
+                cn_out = dequantize_residual(cn_out, h.dtype)
         else:
-            cn_in = h
-        _, cn_out = sd3_joint_block(index_params(ctrl["joint_blocks"], table[i]),
-                                    cn_in, pre.control_enc, pre.cond_temb,
-                                    heads=heads)
+            if pre is None:
+                pre = _preprocess_sd3(ctrl, cfg, h, enc, condition, pooled,
+                                      condition_pooled, timestep, training=training)
+                cn_in = pre.moe_hidden
+            else:
+                cn_in = h
+            _, cn_out = sd3_joint_block(index_params(ctrl["joint_blocks"], table[i]),
+                                        cn_in, pre.control_enc, pre.cond_temb,
+                                        heads=heads)
+            if return_control_residuals:
+                cn_ys.append(cn_out if control_residuals_bits == 16 else
+                             quantize_residual(cn_out, control_residuals_bits))
         if cross:
             cond_kv = cn_out
         h = h + linear(index_params(ctrl["add_blocks"], table[i]), cn_out) * scale
@@ -232,8 +256,14 @@ def unigen_sd3_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     h = linear(base["proj_out"], adaln_continuous(base["norm_out"], h, temb))
     out = unpatchify(h, height // bb.patch_size, width // bb.patch_size,
                      bb.patch_size, bb.out_channels)
-    return (out, {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight},
-            {"expert_counts": pre.expert_counts})
+    if reuse:
+        return (out, {"moe_loss": torch.zeros((), dtype=torch.float32,
+                                              device=out.device)},
+                {"expert_counts": None})
+    add_outputs = {"expert_counts": pre.expert_counts}
+    if return_control_residuals:
+        add_outputs["control_residuals"] = stack_residuals(cn_ys)
+    return (out, {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight}, add_outputs)
 
 
 def conditioning_schedule(num_steps: int, conditioning_scale: float = 1.0,

@@ -2,7 +2,9 @@
 
 Port of ``unigen_tpu/ops/attention.py``. ``sdpa_ref`` is the plain version
 of ``sdpa_xla`` (fp32 logits and softmax, probabilities cast to the value
-dtype for the second product). ``sdpa`` with rope tables runs the fused
+dtype for the second product); ``sdpa_xla`` is the same function under the
+JAX package's name, for the text towers' masked attention, which is plain
+XLA there and reaches no kernel. ``sdpa`` with rope tables runs the fused
 RoPE attention, without rope the rope-free attention: each a
 ``torch.autograd.Function`` whose forward and backward are the CUDA kernels
 on the card and the plain versions on the CPU. The TPU's split between
@@ -32,6 +34,9 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).to(torch.float32),
                        v.to(torch.float32))
     return out.to(q.dtype)
+
+
+sdpa_xla = sdpa_ref
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -23,6 +23,10 @@ argument of ``quant_backward(policy)``, which scopes a forward and its
 backward. These backward products are plain matmuls (XLA
 dots in JAX, not Pallas kernels), so ``torch.matmul`` and ``torch._int_mm``
 compute them.
+
+``quantize_residual`` / ``dequantize_residual`` / ``residual_buffer`` keep
+the serving caches' control residuals as int8 or packed int4 codes with
+per-token scales (XLA-fused ops in JAX; plain PyTorch here).
 """
 
 from __future__ import annotations
@@ -79,6 +83,68 @@ def _quantize_act(x: torch.Tensor):
     k = x.shape[-1]
     xq, xs = quant_matmul.quantize_act(x.reshape(-1, k).contiguous())
     return xq.reshape(x.shape), xs.reshape(*x.shape[:-1], 1)
+
+
+def quantize_residual(r: torch.Tensor, bits: int = 8) -> dict:
+    """Per-token symmetric quantization of a cached control residual
+    (``unigen_tpu/ops/quant.py:84``). bits=8: ``{"q": int8 [..., D], "s":
+    f32 [..., 1]}``; bits=4: ``{"q4": int8 [..., D/2], "s"}``, codes in
+    [-7, 7] nibble-packed along the FEATURE axis, feature j in the low
+    nibble of byte j and feature j + D/2 in its high nibble. The scale's
+    divisor is a tensor on r's device: a CUDA tensor divided by a Python
+    number is multiplied by its reciprocal, one bit off the IEEE division."""
+    rf = r.to(torch.float32)
+    amax = rf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    if bits == 4:
+        if r.shape[-1] % 2:
+            raise ValueError(f"feature dim must be even to nibble-pack: {tuple(r.shape)}")
+        s = amax / amax.new_tensor(7.0)
+        q = torch.round(rf / s).to(torch.int8)
+        half = q.shape[-1] // 2
+        return {"q4": (q[..., :half] & 0x0F) | (q[..., half:] << 4), "s": s}
+    if bits != 8:
+        raise ValueError(f"residual bits must be 4 or 8, got {bits}")
+    s = amax / amax.new_tensor(127.0)
+    return {"q": torch.round(rf / s).to(torch.int8), "s": s}
+
+
+def dequantize_residual(d: dict, dtype) -> torch.Tensor:
+    """Inverse of ``quantize_residual``: fp32 codes times scales, cast to
+    ``dtype``; the leaf key ("q" or "q4") says which."""
+    if "q4" in d:
+        p = d["q4"]
+        q = torch.cat([(p << 4) >> 4, p >> 4], dim=-1)   # sign-extending shifts
+        return (q.to(torch.float32) * d["s"]).to(dtype)
+    return (d["q"].to(torch.float32) * d["s"]).to(dtype)
+
+
+def residual_buffer(shape, bits: int, dtype, device=None):
+    """A zeroed residual-cache buffer of one capture site: a ``dtype`` tensor
+    (bits=16), int8 codes + f32 per-token scales (8), or packed int4 codes +
+    scales (4); the scale keeps the token layout with a trailing 1."""
+    shape = tuple(shape)
+    if bits == 16:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    scales = torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)
+    if bits == 8:
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device), "s": scales}
+    if bits != 4 or shape[-1] % 2:
+        raise ValueError(f"residual buffer: bits {bits}, shape {shape}")
+    return {"q4": torch.zeros(shape[:-1] + (shape[-1] // 2,), dtype=torch.int8,
+                              device=device), "s": scales}
+
+
+def stack_residuals(ys):
+    """Per-block residuals (tensors, or quantized dicts) stacked on a
+    leading block axis."""
+    if isinstance(ys[0], dict):
+        return {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+    return torch.stack(ys)
+
+
+def residual_at(res, i: int):
+    """Block ``i`` of a stacked residual cache, as views."""
+    return {k: v[i] for k, v in res.items()} if isinstance(res, dict) else res[i]
 
 
 def _check_2d(w: torch.Tensor, name: str):

@@ -7,12 +7,13 @@ tensors (pad outputs are discarded), concatenates along axis 0, runs
 ``run_batch``, copies each output leaf to the host once, splits it back per
 request and resolves each request's Future.
 
-Usage:
-    model = UniGenFlux(cfg, params)                 # on CUDA
-    srv = MicroBatchServer(lambda x: model.denoise(**x), batch_size=2)
-    fut = srv.submit(latents=z, condition=c, encoder=e, pooled=p,
-                     cond_pooled=cp)                # each leading dim 1
-    latents = fut.result()[0]
+Usage, the FLUX pipeline as the JAX package serves it:
+    pipe = UniGenFluxPipeline(cfg, params, vae_params=vae, ...)   # on CUDA
+    srv = MicroBatchServer(lambda x: pipe.generate(**x, num_inference_steps=4),
+                           batch_size=2)
+    fut = srv.submit(prompt_embeds=e, pooled=p, cond_pooled=cp,
+                     control_pixels=px)             # each leading dim 1
+    image = fut.result()[0]                         # uint8 [H, W, 3]
 """
 
 from __future__ import annotations
