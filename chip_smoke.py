@@ -48,6 +48,28 @@ Phases, in order; any failure exits non-zero:
      against its plain version), pipeline_vae_check (against the VAE in
      fp64 on the card, with the TF32 flags in force) and pipeline_profile
      (device time by group of an exact generate and of the text towers).
+  4c. stepserve: serving_steps.StepServer on the same tree and 4b's VAE,
+     4 slots, 512^2, 4 steps, in each mode of STEPSERVE_MODES (exact;
+     multi_tick 4; model cache k=2 order 1; hybrid c=4 k=2 int8; adaptive
+     hybrid at lag 1): a "stepserve" line with cold and warm single-request
+     latency, sustained img/s over 16 requests fed by blocking submits from
+     threads, latency p50/p95, mean occupancy, rows full/base/refresh/pad,
+     replay ticks, the device's idle share over the sustained window (a
+     CUDA-only profiler), peak and residual-cache bytes, and launches
+     equal to the formula of the forwards the server dispatched (its
+     family forward wrapped), none of the general W4A8 kernel; then
+     stepserve_check: every kernel call of one exact 4-slot tick against
+     its plain version; then, at the deepest of REDUCED_DEPTHS whose
+     stream stays unsaturated (at full depth the random tree's stream
+     overflows and outputs stop depending on inputs), each request's final
+     latents (its decode wrapped) against UniGenFluxPipeline.generate of
+     the same request and knobs (lag 1: the lagged rule written out) at
+     the same shapes, within STEPSERVE_REL_L2: requests served in pairs
+     one tick apart (two live slots at different steps), multi_tick with
+     all 4 slots admitted at one tick.
+  4d. stepserve_multires: MultiResolutionStepServer on the same tree, a
+     512^2 bucket of 4 slots and a 1024^2 bucket of 1; per-bucket stats
+     and launches.
   5. train: the flow-matching fine-tune step of the same tree (the fp
      trainable subset in bf16, W4A8 frozen), 512^2, micro-batch 2,
      accumulation 2, remat "full", 1 warm-up + 4 timed micro-steps through
@@ -86,6 +108,12 @@ Phases, in order; any failure exits non-zero:
      gives the device time by kernel group.
   9. sd3_1024: one b=1 request of the same model at 1024^2, 4 steps
      (4429, 4096, 8192 and 8525 keys): launch counts and the path check.
+  8b. stepserve_sd3 (after 9, on the same tree): the StepServer with
+     per-sample routing, 4 slots, 28 steps, CFG 7.0 inside the tick, exact
+     and the hybrid (8, 2), the fields of 4c; stepserve_sd3_check holds the
+     exact server against UniGenSD3.denoise of the same 4 requests, and
+     every kernel call of one exact 4-slot tick and of a one-slot gathered
+     full and base-with-replay forward against its plain version.
  10. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
@@ -110,6 +138,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -128,13 +157,19 @@ W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
               (1024, 3072, 12288), (2048, 3072, 12288), (3072, 3072, 12288),
               (1024, 12288, 3072), (2048, 12288, 3072), (3072, 15360, 3072),
               (2, 3072, 9216)]
+# the StepServer's forwards (phase 4c): the AdaLN linears at M = 1 and 4,
+# image rows 4 x 1024, single-block stream rows 4 x 1536 (rows of phase 3,
+# at the tile quant_matmul.tile picks)
+W4A8_STEPSERVE_CASES = [(1, 3072, 18432), (4, 3072, 18432), (4, 3072, 9216),
+                        (4096, 3072, 3072), (6144, 3072, 12288), (6144, 15360, 3072)]
 W4A8_REP = (2048, 3072, 3072)         # the kernels line's shape
 # the activation quantization at the path's (M, K) in bf16, and one fp32 row
 # (the Trainer's activations)
 QUANT_CASES = [(2, 3072, "bfloat16"), (1024, 3072, "bfloat16"), (2048, 3072, "bfloat16"),
                (3072, 3072, "bfloat16"), (1024, 12288, "bfloat16"),
                (2048, 12288, "bfloat16"), (3072, 15360, "bfloat16"),
-               (2048, 3072, "float32")]
+               (2048, 3072, "float32"),
+               (4, 3072, "bfloat16"), (4096, 3072, "bfloat16"), (6144, 15360, "bfloat16")]
 QUANT_REP = (2048, 3072, "bfloat16")
 # the rope-free kernel at the SD3 paths' shapes (B, H, Sq, Skv, D): 512^2 at
 # serving batch 4 (2 requests x CFG), then the 1024^2 lengths at batch 2
@@ -195,6 +230,34 @@ PIPELINE_MODES = [
     ("adaptive_hybrid_b", dict(control_cache_threshold=0.03, model_cache_threshold=0.012))]
 # the fp32 VAE's encode and decode against the same modules in fp64
 VAE_REL_L2 = 1e-4
+# the StepServer phases: 4 slots; at 512^2 FLUX, 4 steps, in each mode
+STEPSERVE_SLOTS = 4
+STEPSERVE_MODES = [
+    ("exact", {}),
+    ("exact_multi_tick_4", dict(multi_tick=4)),
+    ("model_cache_2_order_1", dict(model_cache_interval=2, model_cache_order=1)),
+    ("hybrid_4_2_int8", dict(control_cache_interval=4, model_cache_interval=2,
+                             residual_cache_bits=8)),
+    # at ~0.0084 of drift a step: full, hold, hold, base
+    ("adaptive_hybrid_lag1", dict(control_cache_threshold=0.03,
+                                  model_cache_threshold=0.012, adaptive_lag=1))]
+# a served request against the one-shot pipeline (or denoise) of the same
+# request and knobs, at the same shapes: the relative L2 of their final
+# latents' displacement from the initial noise (what the forwards
+# contributed). At equal shapes every mode read 0 on the H100 (the same
+# kernels on the same rows give the same bits); the bound leaves room for
+# a last-bit difference only, well under what a wrong replay coefficient
+# or a row written to another slot moves
+STEPSERVE_REL_L2 = 1e-3
+# the reduced depths (double, single base blocks) tried, deepest first, for
+# the comparison where the random tree's stream stays unsaturated
+REDUCED_DEPTHS = ((8, 16), (4, 8), (2, 4))
+SD3_STEPSERVE_MODES = [
+    ("exact", {}),
+    ("hybrid_8_2", dict(control_cache_interval=8, model_cache_interval=2))]  # sd3 "balanced"
+SD3_STEPSERVE_REQUESTS = 2 * STEPSERVE_SLOTS
+SD3_CHECK_STEPS = 4       # the server-vs-denoise check's steps a request
+MULTIRES_REQUESTS = {512: 4, 1024: 2}     # requests per bucket (resolution)
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 # 65536 registers / 384 threads, rounded down to the allocation unit of 8:
 # the register count at entry of the setmaxnreg kernels (24 x 128 + 240 x 256
@@ -950,7 +1013,7 @@ def phase_kernels(torch, dev, seed, pqm=None):
         rows["flash_attention"].append(row)
 
     rows["w4a8_matmul"] = [w4a8_row(torch, dev, g, *case, pqm=pqm)
-                           for case in W4A8_CASES]
+                           for case in W4A8_CASES + W4A8_STEPSERVE_CASES]
     rows["quantize_act"] = [quantize_row(torch, dev, g, *case) for case in QUANT_CASES]
     rows.update(backward_rows(torch, dev, g, ids))
     rows.update(norope_backward_rows(torch, dev, g))
@@ -1646,7 +1709,8 @@ def phase_pipeline(torch, dev, params, seed):
     repeated condition prompt hits the prompt LRU), served by
     MicroBatchServer(batch_size=2); the launch counters must equal the
     formula of the steps taken. Then the replay, composition, path, VAE
-    and profile checks. Every check stops the run."""
+    and profile checks. Every check stops the run. -> the VAE's config and
+    tree (the text towers are freed on return)."""
     from unigen_tpu_torch import presets
     from unigen_tpu_torch.models import vae as vae_lib
     from unigen_tpu_torch.models.clip_text import CLIPTextConfig, init_clip_params
@@ -1882,6 +1946,7 @@ def phase_pipeline(torch, dev, params, seed):
               groups_ms=groups, text_towers=dict(wall_ms=text_wall,
                                                  device_busy_ms=sum(text.values()),
                                                  groups_ms=text)))
+    return vae_cfg, pipe.vae_params
 
 
 def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
@@ -2296,6 +2361,704 @@ def phase_sd3_1024(torch, model, seed):
         resolution=HIRES, guidance=guidance)
 
 
+# ------------------------------------------------------------ the StepServer
+
+def forward_log(srv):
+    """Wrap the server's family forward: each call appends (rows, "full" or
+    "replay") to the returned list."""
+    calls, real = [], srv._fwd
+
+    def logged(lat, *a, **kw):
+        calls.append((lat.shape[0], "replay" if "control_residuals" in kw else "full"))
+        return real(lat, *a, **kw)
+    srv._fwd = logged
+    return calls
+
+
+def decode_log(srv):
+    """Wrap the server's VAE decode: the final latents it is handed, in
+    retirement order (the order in which the requests' futures resolve)."""
+    rows, real = [], srv._decode
+
+    def logged(lat):
+        rows.append(lat)
+        return real(lat)
+    srv._decode = logged
+    return rows
+
+
+def flux_forward_launches(params, cfg, calls):
+    """Launches of the FLUX forwards a server dispatched: a full forward
+    expected_launches (any rows: per-sample routing, rope control), a
+    replaying one expected_replay_launches."""
+    out = {}
+    for rows, kind in calls:
+        per = (expected_replay_launches(params, cfg) if kind == "replay"
+               else expected_launches(params, cfg, rows))
+        for k, n in per.items():
+            out[k] = out.get(k, 0) + n
+    return nonzero(out)
+
+
+def expected_sd3_replay_launches(cfg) -> int:
+    """Rope-free attention calls of a UniGen-SD3 forward that replays cached
+    control outputs: the base joint blocks and attn2 of the dual ones (no
+    MoE preprocess, no control block)."""
+    bb = cfg.sd3
+    return bb.num_layers + sum(i in set(bb.dual_attention_layers)
+                               for i in range(bb.num_layers))
+
+
+def sd3_forward_launches(cfg, calls):
+    """Launches of the SD3 forwards a server dispatched (each runs 2m rows:
+    the CFG pair of m slots)."""
+    n = sum(expected_sd3_replay_launches(cfg) if kind == "replay"
+            else expected_sd3_launches(cfg, 2 * rows) for rows, kind in calls)
+    return {"flash_attention": n} if n else {}
+
+
+def stepserve_requests(torch, dev, bb, vae_cfg, n, res, seed, t_len, latent_shape):
+    """``n`` b=1 requests made on the device from ``seed``: text rows, pooled
+    rows, control pixels in [-1, 1] and initial noise of ``latent_shape``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    return [dict(prompt_embeds=mk(1, t_len, bb.joint_attention_dim),
+                 pooled=mk(1, bb.pooled_projection_dim),
+                 cond_pooled=mk(1, bb.pooled_projection_dim),
+                 control_pixels=torch.rand(1, 3, res, res, generator=g, device=dev) * 2 - 1,
+                 latents=mk(1, *latent_shape)) for _ in range(n)]
+
+
+def busy_ms(torch, prof):
+    """Summed device time of the CUDA events of a profiler window, read from
+    the raw trace (building the profiler's Python event objects for a
+    window of ~10^5 kernels takes longer than the window itself)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+
+
+def serve_requests(torch, srv, reqs, keys, order, latency):
+    """Feed ``reqs`` by one blocking submit (wait=True) from a thread each;
+    ``order`` gets each request's key as its future resolves, ``latency``
+    its submit-to-image ms. -> the futures, by key."""
+    futs = {}
+
+    def feed(key, req):
+        t0 = time.perf_counter()
+        fut = srv.submit(**req, wait=True)
+
+        def done(_, key=key, t0=t0):
+            latency[key] = (time.perf_counter() - t0) * 1e3
+            order.append(key)
+        fut.add_done_callback(done)
+        futs[key] = fut
+    threads = [threading.Thread(target=feed, args=(k, r)) for k, r in zip(keys, reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            raise SystemExit("stepserve: a blocking submit never admitted")
+    return futs
+
+
+def drive_server(torch, dev, srv, reqs, n_sustained, phase, launch_formula, **extra):
+    """One mode of a StepServer: a cold and a warm single request, then
+    ``n_sustained`` requests fed by blocking submits from threads, the
+    sustained window traced by the profiler (CUDA activity only) for the
+    device's idle share. Checks the launch counts against ``launch_formula``
+    of the forwards the window dispatched. -> the line."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from unigen_tpu_torch.utils import tree_leaves
+    calls, order, latency = forward_log(srv), [], {}
+    out = {}
+    try:
+        single = []
+        for k in (0, 1):
+            t0 = time.perf_counter()
+            out[k] = srv.submit(**reqs[k]).result(timeout=900)
+            single.append((time.perf_counter() - t0) * 1e3)
+        before = srv.stats()
+        calls.clear()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        keys = list(range(2, 2 + n_sustained))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            futs = serve_requests(torch, srv, [reqs[k] for k in keys], keys, order,
+                                  latency)
+            for k in keys:
+                out[k] = futs[k].result(timeout=900)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = nonzero(launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        after = srv.stats()
+        res_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(srv._res))
+    finally:
+        srv.close()
+    busy = busy_ms(torch, prof)
+    delta = {k: after[k] - before[k] for k in ("ticks", "ticks_replay", "ticks_fused",
+                                               "rows_full", "rows_base", "rows_refresh",
+                                               "rows_pad", "active_row_steps", "failed",
+                                               "retired")}
+    lat = np.asarray([latency[k] for k in keys])
+    want = launch_formula(calls)
+    forwards = {}
+    for r, kind in calls:
+        forwards[f"{kind}_{r}"] = forwards.get(f"{kind}_{r}", 0) + 1
+    line = dict(phase=phase, **extra, slots=srv.B, requests_sustained=n_sustained,
+                cold_ms=single[0], warm_ms=single[1], wall_ms=wall * 1e3,
+                images_per_s=n_sustained / wall,
+                latency_ms=dict(p50=float(np.percentile(lat, 50)),
+                                p95=float(np.percentile(lat, 95)), max=float(lat.max())),
+                mean_occupancy=delta["active_row_steps"] / (delta["ticks"] * srv.B),
+                **delta, device_busy_ms=busy, device_idle_share=1 - busy / (wall * 1e3),
+                peak_bytes=peak, residual_cache_bytes=res_bytes,
+                forwards=forwards, launches=launches, expected_launches=want)
+    emit(line)
+    if launches != want or launches.get("w4a8_general") or delta["failed"] \
+            or delta["retired"] != n_sustained:
+        raise SystemExit(f"{phase} {extra}: launches {launches} != expected {want}, "
+                         f"or a request failed ({delta})")
+    shape = (1, srv.height, srv.width, 3)
+    if sorted(order) != keys or any(img.dtype != torch.uint8 or tuple(img.shape) != shape
+                                    for img in out.values()):
+        raise SystemExit(f"{phase}: {len(order)} of {n_sustained} requests resolved, "
+                         f"or an image is not uint8 {shape}")
+    return line
+
+
+def serve_staggered(srv, pair):
+    """Two requests one tick apart: the second is submitted from inside the
+    first tick's forward (on the worker's thread, outside its lock), so it
+    is admitted at the next tick boundary and the two slots run at
+    different steps. -> the two futures (the second is set before the
+    first resolves)."""
+    futs, real = [None, None], srv._fwd
+
+    def first(*a, **kw):
+        srv._fwd = real
+        futs[1] = srv.submit(**pair[1])
+        return real(*a, **kw)
+    srv._fwd = first
+    futs[0] = srv.submit(**pair[0])
+    return futs
+
+
+def admit_together(srv, reqs):
+    """Submit ``reqs`` so that all of them are admitted at one tick
+    boundary: the worker's first admission waits on its condition (which
+    lets the submits take the lock) until every request holds a slot.
+    -> their futures."""
+    real = srv._apply_admissions
+
+    def gathered():
+        srv._apply_admissions = real
+        srv._work.wait_for(lambda: sum(s.payload is not None for s in srv._slots)
+                           == len(reqs), timeout=900)
+        real()
+    srv._apply_admissions = gathered
+    return [srv.submit(**r) for r in reqs]
+
+
+def serve_at_reference_shapes(srv, reqs, knobs):
+    """Serve ``reqs`` (an even number, at most the slots) so that each
+    forward runs at the shapes of the one-shot reference: under multi_tick
+    all admitted at one tick (full occupancy, one fused window), else in
+    pairs one tick apart (two live slots at different steps; the gathered
+    forwards then run one row each). -> {index: (final latents, image)},
+    the forwards (rows, kind), the stats, how they were admitted."""
+    calls, rows = forward_log(srv), decode_log(srv)
+    if knobs.get("multi_tick", 1) > 1:
+        admission = f"all {len(reqs)} at one tick"
+        imgs = [f.result(timeout=900) for f in admit_together(srv, reqs)]
+    else:
+        admission = "pairs one tick apart"
+        imgs = []
+        for i in range(0, len(reqs), 2):
+            futs = serve_staggered(srv, reqs[i:i + 2])
+            imgs.append(futs[0].result(timeout=900))
+            imgs.append(futs[1].result(timeout=900))
+    return dict(enumerate(zip(rows, imgs))), calls, srv.stats(), admission
+
+
+def at_reference_shapes(srv, knobs, calls, stats):
+    """Whether serve_at_reference_shapes ran at its reference's shapes: the
+    exact modes every forward over all slots (against the pipeline at b =
+    slots; multi_tick in a fused window), the cache modes every gathered
+    forward over one row (against the pipeline at b=1)."""
+    exact = not pipeline_knobs(knobs)
+    sizes = {m for m, _ in calls}
+    return (sizes == ({srv.B} if exact else {1})
+            and (knobs.get("multi_tick", 1) == 1 or stats["ticks_fused"] > 0))
+
+
+def flux_reduced(torch, cfg, params, depth):
+    """The flux_full config and a view of its tree cut to ``depth`` = (double,
+    single) base blocks and half as many control blocks (the first blocks of
+    each stack, no copy)."""
+    import dataclasses
+
+    from unigen_tpu_torch.utils import tree_map
+    dbl, sgl = depth
+    per = cfg.control.single_control_dev
+    cut = {"double_blocks": (dbl, dbl // per), "single_blocks": (sgl, sgl // per),
+           "add_double": (None, dbl // per), "add_single": (None, sgl // per)}
+
+    def take(tree, n):
+        return tree_map(lambda t: t[:n], tree)
+    base = {k: take(v, cut[k][0]) if k in cut and cut[k][0] else v
+            for k, v in params["base"].items()}
+    ctrl = {k: take(v, cut[k][1]) if k in cut else v for k, v in params["control"].items()}
+    return (dataclasses.replace(cfg, flux=dataclasses.replace(
+        cfg.flux, num_layers=dbl, num_single_layers=sgl)), {"base": base, "control": ctrl})
+
+
+def stream_probe(torch, cfg, params, req, dev):
+    """One b=1 forward of ``params`` (the request's noise as latents and as
+    condition): whether the stream entering the final
+    AdaLN keeps a finite mean square in float32 on every token (past it the
+    norm divides by inf and the prediction no longer depends on the input),
+    and the stream's largest |value|."""
+    from unigen_tpu_torch.models import unigen_flux as uf
+    from unigen_tpu_torch.ops.packing import prepare_latent_image_ids
+    seen, real = [], uf.adaln_continuous
+
+    def probe(p, x, temb):
+        xf = x.float()
+        seen.append((bool(torch.isfinite(xf.square().mean(-1)).all()),
+                     xf.abs().max().item()))
+        return real(p, x, temb)
+    lat = req["latents"]
+    hw = math.isqrt(lat.shape[1])
+    ids = prepare_latent_image_ids(hw, hw, device=dev)
+    uf.adaln_continuous = probe
+    try:
+        with torch.no_grad():
+            pred = uf.unigen_flux_forward(
+                params, cfg, lat, lat, req["prompt_embeds"], req["pooled"],
+                req["cond_pooled"], torch.full((1,), 0.5, dtype=lat.dtype, device=dev),
+                ids, torch.zeros(req["prompt_embeds"].shape[1], 3, device=dev), ids)[0]
+    finally:
+        uf.adaln_continuous = real
+    finite, max_abs = seen[-1]
+    return finite and bool(torch.isfinite(pred.float()).all()), max_abs
+
+
+def lagged_denoise(thr_c, thr_m, kinds):
+    """The server's adaptive_lag=1 hybrid rule for one request, written out
+    as forward calls (a stand-in for UniGenFluxPipeline.denoise at b=1):
+    step 0 full, step 1 holds; at step i >= 2 the drifts of step i-1's input
+    against the references as they stood after step i-2, read as 0 where
+    step i-1 moved that reference; full past ``thr_c``, else base past
+    ``thr_m``, else the held prediction. Appends each step's kind to
+    ``kinds``."""
+    import numpy as np
+    from unigen_tpu_torch.pipelines import caching, scheduling
+
+    def denoise(mode, lat, fwd, streams, sigmas, num_steps, cfg_scale):
+        ref_full = ref_pred = lat
+        drifts, moved, res, p1 = [], [], None, None
+        for i in range(num_steps):
+            kind = "full" if i == 0 else "hold"
+            if i >= 2:
+                d_full, d_pred = drifts[i - 2]
+                full_moved, pred_moved = moved[i - 1]
+                kind = ("full" if not full_moved and d_full > np.float32(thr_c) else
+                        "base" if not pred_moved and d_pred > np.float32(thr_m) else "hold")
+            if kind == "full":
+                p1, outs = fwd(lat, i, *streams[0], return_control_residuals=True)
+                res, ref_full, ref_pred = outs["control_residuals"], lat, lat
+            elif kind == "base":
+                p1 = fwd(lat, i, *streams[0], control_residuals=res)[0]
+                ref_pred = lat
+            kinds.append(kind)
+            moved.append((kind == "full", kind != "hold"))
+            lat = scheduling.euler_step(lat, p1, sigmas[i], sigmas[i + 1])
+            drifts.append((np.float32(caching.rel_change(lat, ref_full).item()),
+                           np.float32(caching.rel_change(lat, ref_pred).item())))
+        return lat
+    return denoise
+
+
+def pipeline_knobs(knobs):
+    """A server mode's knobs as the one-shot pipeline takes them (multi_tick
+    and adaptive_lag are the server's alone)."""
+    return {k: v for k, v in knobs.items() if k not in ("multi_tick", "adaptive_lag")}
+
+
+def pipeline_finals(torch, pipe, reqs, knobs, res, batch=STEPSERVE_SLOTS):
+    """The one-shot pipeline's (final latents, uint8 images) of ``reqs`` with
+    the server's ``knobs``: one generate over up to ``batch`` requests at a
+    time (rows are independent under per-sample routing and the fixed
+    schedules are per step), or, under adaptive_lag=1, lagged_denoise per
+    request. Each control image is VAE-encoded alone, as the server's
+    admission does: the convolutions' last bits depend on the batch size,
+    and a last-bit change of the condition can flip a token's top-1 expert.
+    Also -> the step kinds of the lagged references."""
+    knobs = pipeline_knobs(knobs)
+    lagged = "control_cache_threshold" in knobs
+    got, kinds, real, encode = [], [], pipe.decode, pipe.encode_control
+
+    def keep(lat, lh, lw):
+        got.append(lat)
+        return real(lat, lh, lw)
+
+    def one_by_one(px, offsets, lh, lw):
+        rows = [encode(px[i:i + 1], offsets, lh, lw) for i in range(px.shape[0])]
+        return torch.cat([lat for lat, _ in rows]), rows[0][1]
+    pipe.decode, pipe.encode_control = keep, one_by_one
+    imgs = []
+    try:
+        step = 1 if lagged else batch
+        for i in range(0, len(reqs), step):
+            part = reqs[i:i + step]
+            x = {k: torch.cat([r[k] for r in part]) for k in part[0]}
+            if lagged:
+                pipe.denoise = lagged_denoise(knobs["control_cache_threshold"],
+                                              knobs["model_cache_threshold"], kinds)
+                imgs.append(pipe.generate(**x, height=res, width=res,
+                                          num_inference_steps=STEPS))
+                del pipe.denoise
+            else:
+                imgs.append(pipe.generate(**x, height=res, width=res,
+                                          num_inference_steps=STEPS, **knobs))
+    finally:
+        del pipe.decode, pipe.encode_control
+    return torch.cat(got), torch.cat(imgs), kinds
+
+
+def compare_finals(torch, reqs, finals, ref_lat, ref_img):
+    """Per request: the relative L2 of the server's displacement (final
+    latents - initial noise) from the pipeline's, and the largest uint8
+    difference of their images."""
+    rels, codes = [], []
+    for k, r in enumerate(reqs):
+        lat, img = finals[k]
+        init = r["latents"].double()
+        want = ref_lat[k:k + 1].double() - init
+        rels.append(((lat.double() - init - want).norm() / want.norm()).item())
+        codes.append(int((img.int() - ref_img[k:k + 1].int()).abs().max()))
+    return rels, codes
+
+
+def phase_stepserve(torch, dev, params, vae_cfg, vae_params, seed):
+    """4c. The StepServer on phase 4's W4A8 flux_full tree and phase 4b's
+    full-width VAE, 512^2, STEPSERVE_SLOTS slots, 4 steps, 512-token
+    embeddings from ``seed``: one ``stepserve`` line per mode of
+    STEPSERVE_MODES. Then ``stepserve_check``: every kernel call of one
+    exact tick at full occupancy against its plain version, and, at the
+    largest reduced depth whose stream stays unsaturated, every request's
+    final latents against the one-shot pipeline's at the same shapes."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline
+    from unigen_tpu_torch.serving_steps import StepServer
+
+    cfg = presets.flux_full()
+    bb, slots = cfg.flux, STEPSERVE_SLOTS
+    s_img = (PIPE_RES // (2 * vae_cfg.downscale)) ** 2
+    n_sus = 4 * slots
+    reqs = stepserve_requests(torch, dev, bb, vae_cfg, 2 + n_sus, PIPE_RES, seed + 11,
+                              SEQ_TXT, (s_img, bb.in_channels))
+    lines = {}
+    for name, knobs in STEPSERVE_MODES:
+        srv = StepServer(cfg, params, vae_cfg, vae_params, batch_size=slots,
+                         num_inference_steps=STEPS, height=PIPE_RES, width=PIPE_RES,
+                         device=dev, **knobs)
+        lines[name] = drive_server(
+            torch, dev, srv, reqs, n_sus, "stepserve",
+            lambda calls: flux_forward_launches(params, cfg, calls), mode=name,
+            knobs=knobs, steps=STEPS, resolution=PIPE_RES)
+
+    # every kernel call of one exact tick at full occupancy
+    srv = StepServer(cfg, params, vae_cfg, vae_params, batch_size=slots,
+                     num_inference_steps=STEPS, height=PIPE_RES, width=PIPE_RES,
+                     device=dev)
+    try:
+        four = reqs[2:2 + slots]
+        st = dict(lat=torch.cat([r["latents"] for r in four]),
+                  cond=torch.cat([srv._encode(r["control_pixels"]) for r in four]),
+                  embeds=torch.cat([r["prompt_embeds"] for r in four]),
+                  pooled=torch.cat([r["pooled"] for r in four]),
+                  cpool=torch.cat([r["cond_pooled"] for r in four]))
+        vec = [torch.full((slots,), float(v), device=dev) for v in
+               (srv._timesteps[0], srv._sigmas[0], srv._sigmas[1], 1.0, 0.0)]
+        checks = {}
+        with torch.no_grad(), shadowed_kernels(torch, checks):
+            tick = srv._exact_step(st, st["lat"], *vec)
+    finally:
+        srv.close()
+    path_check = path_check_summary(checks)
+    per_tick = expected_launches(params, cfg, slots)
+
+    # each request against the one-shot pipeline of the same request and
+    # knobs, at the deepest reduced depth whose stream stays unsaturated
+    # (at full depth the random tree's stream overflows and the outputs no
+    # longer depend on the inputs). On the card the random quantized tree
+    # turns a last-bit difference of a product at another batch size into
+    # a flipped int8 code or top-1 expert (the line's pipeline_b4_vs_b1:
+    # the pipeline against itself at b=4 and b=1), so the server is held to
+    # the pipeline at equal shapes: two requests one tick apart (two live
+    # slots at different steps), whose gathered forwards then run one row
+    # each, against the pipeline at b=1; the exact tick runs all 4 rows,
+    # against the pipeline at b=4; multi_tick with all 4 slots admitted at
+    # once (one fused window), against the pipeline at b=4
+    probes = {}
+    for depth in ((bb.num_layers, bb.num_single_layers),) + REDUCED_DEPTHS:
+        rcfg, rparams = flux_reduced(torch, cfg, params, depth)
+        probes[depth] = stream_probe(torch, rcfg, rparams, reqs[0], dev)
+        if probes[depth][0]:
+            break
+    else:
+        raise SystemExit(f"stepserve_check: no depth keeps the stream unsaturated: "
+                         f"{probes}")
+    rpipe = UniGenFluxPipeline(cfg=rcfg, params=rparams, vae_cfg=vae_cfg,
+                               vae_params=vae_params, device=dev)
+    part, reduced, rrefs = reqs[2:2 + slots], {}, {}
+    # recorded, not bounded: the pipeline against itself, the same four
+    # requests in one b=4 generate and one at a time
+    rrefs["{}"] = pipeline_finals(torch, rpipe, part, {}, PIPE_RES)
+    alone = {k: pipeline_finals(torch, rpipe, [r], {}, PIPE_RES)[:2]
+             for k, r in enumerate(part)}
+    rels, codes = compare_finals(torch, part, alone, *rrefs["{}"][:2])
+    sensitivity = dict(max_rel_l2=max(rels), max_uint8_diff=max(codes))
+    unequal = []
+    for name, knobs in STEPSERVE_MODES:
+        srv = StepServer(rcfg, rparams, vae_cfg, vae_params, batch_size=slots,
+                         num_inference_steps=STEPS, height=PIPE_RES, width=PIPE_RES,
+                         device=dev, **knobs)
+        try:
+            got, calls, st, admission = serve_at_reference_shapes(srv, part, knobs)
+        finally:
+            srv.close()
+        key = json.dumps(pipeline_knobs(knobs), sort_keys=True)
+        if key not in rrefs:
+            rrefs[key] = pipeline_finals(torch, rpipe, part, knobs, PIPE_RES,
+                                         batch=slots if key == "{}" else 1)
+        ref_lat, ref_img, kinds = rrefs[key]
+        rels, codes = compare_finals(torch, part, got, ref_lat, ref_img)
+        if not at_reference_shapes(srv, knobs, calls, st):
+            unequal.append(name)
+        reduced[name] = dict(requests=len(rels), admission=admission,
+                             max_rel_l2=max(rels), max_uint8_diff=max(codes),
+                             rows_full=st["rows_full"], rows_base=st["rows_base"],
+                             rows_refresh=st["rows_refresh"],
+                             ticks_replay=st["ticks_replay"], ticks_fused=st["ticks_fused"],
+                             forwards=sorted({f"{k}_{m}" for m, k in calls}),
+                             **({"reference_kinds": kinds[:STEPS]} if kinds else {}))
+    emit(dict(phase="stepserve_check",
+              reference="UniGenFluxPipeline.generate of the same request and knobs "
+                        "(adaptive_lag=1: the lagged rule written out as forward calls)",
+              metric="relative L2 of the final latents' displacement from the noise",
+              bound_rel_l2=STEPSERVE_REL_L2,
+              tick_path_check=dict(path_check, rows=slots,
+                                   expected={k: per_tick[k] for k in path_check}),
+              reduced_depth=dict(depth=list(depth), pipeline_b4_vs_b1=sensitivity,
+                                 probes={f"{d[0]}/{d[1]}": dict(unsaturated=ok,
+                                                                stream_max_abs=m)
+                                         for d, (ok, m) in probes.items()},
+                                 modes=reduced)))
+    bad = [n for n, r in reduced.items() if not r["max_rel_l2"] <= STEPSERVE_REL_L2]
+    if bad or unequal or any(c["disagree"] or c["calls"] != per_tick[n]
+                             for n, c in path_check.items()) \
+            or set(path_check) != {"flash_attention_rope", "w4a8_matmul", "quantize_act"} \
+            or not torch.isfinite(tick.float()).all():
+        raise SystemExit(f"stepserve_check failed: modes {bad}, not at the "
+                         f"reference's shapes {unequal}, tick {path_check}")
+    return lines
+
+
+def phase_stepserve_multires(torch, dev, params, vae_cfg, vae_params, seed):
+    """4d. MultiResolutionStepServer on the one shared tree: a 512^2 bucket
+    of STEPSERVE_SLOTS slots and a 1024^2 bucket of one slot, a few
+    requests each fed from threads at once; per-bucket stats and launches
+    (the counters are shared: their total must equal the sum of both
+    buckets' formulas)."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.serving_steps import MultiResolutionStepServer
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    srv = MultiResolutionStepServer(
+        cfg, params, vae_cfg, vae_params, num_inference_steps=STEPS, device=dev,
+        buckets={PIPE_RES: dict(batch_size=STEPSERVE_SLOTS), HIRES: dict(batch_size=1)})
+    calls = {key: forward_log(s) for key, s in srv.servers.items()}
+    reqs, keys = [], []
+    for res, n in MULTIRES_REQUESTS.items():
+        s_img = (res // (2 * vae_cfg.downscale)) ** 2
+        reqs += stepserve_requests(torch, dev, bb, vae_cfg, n, res, seed + res, SEQ_TXT,
+                                   (s_img, bb.in_channels))
+        keys += [(res, i) for i in range(n)]
+    reset_launch_counts()
+    order, latency = [], {}
+    try:
+        t0 = time.perf_counter()
+        futs = serve_requests(torch, srv, reqs, keys, order, latency)
+        imgs = {k: f.result(timeout=900) for k, f in futs.items()}
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    finally:
+        srv.close()
+    launches = nonzero(launch_counts())
+    per_bucket = {f"{h}x{w}": flux_forward_launches(params, cfg, c)
+                  for (h, w), c in calls.items()}
+    want = {}
+    for b in per_bucket.values():
+        for k, n in b.items():
+            want[k] = want.get(k, 0) + n
+    emit(dict(phase="stepserve_multires", requests={str(r): n for r, n in
+                                                    MULTIRES_REQUESTS.items()},
+              steps=STEPS, wall_ms=wall * 1e3,
+              latency_ms={f"{r}_{i}": v for (r, i), v in sorted(latency.items())},
+              buckets={k: {f: v[f] for f in ("retired", "ticks", "rows_refresh",
+                                              "rows_pad", "mean_occupancy", "latency_ms",
+                                              "failed") if f in v}
+                       for k, v in stats.items() if k != "total"},
+              bucket_launches=per_bucket, launches=launches, expected_launches=want))
+    for (res, i), img in imgs.items():
+        if img.dtype != torch.uint8 or tuple(img.shape) != (1, res, res, 3):
+            raise SystemExit(f"stepserve_multires: bad image {tuple(img.shape)} at {res}")
+    if launches != nonzero(want) or launches.get("w4a8_general") \
+            or stats["total"]["failed"] or stats["total"]["retired"] != len(reqs):
+        raise SystemExit(f"stepserve_multires: launches {launches} != expected {want} "
+                         f"or a request failed: {stats['total']}")
+
+
+def sd3_server_path_check(torch, srv, x, cond, guidance):
+    """Every kernel call of an sd3 StepServer's own forwards against its
+    plain version, on the requests ``x`` (batched, one per slot) and their
+    encoded control latents ``cond``: one exact tick of all slots (a
+    forward of twice as many rows, each sample's block experts at their own
+    capacities), and the hybrid's gathered full forward and
+    base-with-replay forward of one slot (two rows), the replay fed what
+    the full one captured at the same state. -> per forward the
+    path_check_summary, the expected call counts, the replay's relative L2
+    from the full forward's prediction with its bound (REPLAY_REL_L2 at
+    int8 / int4 residuals, else STEPSERVE_REL_L2), and the three outputs."""
+    n = srv.B
+    e, p = x["prompt_embeds"], x["pooled"]
+    st = dict(lat=x["latents"], cond=cond, cpool=x["cond_pooled"],
+              embeds=torch.stack([torch.zeros_like(e), e], 1),
+              pooled=torch.stack([torch.zeros_like(p), p], 1))
+    vec = [torch.full((n,), float(v), device=srv.device) for v in
+           (srv._timesteps[0], srv._sigmas[0], srv._sigmas[1], 1.0, guidance)]
+    one = [v[:1] for v in vec]
+    idx = torch.zeros(1, dtype=torch.long, device=srv.device)
+    checks = {k: {} for k in ("tick", "full_1", "replay_1")}
+    with torch.no_grad():
+        with shadowed_kernels(torch, checks["tick"]):
+            tick = srv._exact_step(st, st["lat"], *vec)
+        with shadowed_kernels(torch, checks["full_1"]):
+            full, _, outs = srv._gathered(st, idx, one[0], one[3], one[4],
+                                          return_control_residuals=True,
+                                          control_residuals_bits=srv.res_bits)
+        with shadowed_kernels(torch, checks["replay_1"]):
+            base = srv._gathered(st, idx, one[0], one[3], one[4],
+                                 control_residuals=outs["control_residuals"])[0]
+    expected = {"tick": expected_sd3_launches(srv.cfg, 2 * n),
+                "full_1": expected_sd3_launches(srv.cfg, 2),
+                "replay_1": expected_sd3_replay_launches(srv.cfg)}
+    rel = ((base.double() - full.double()).norm() / full.double().norm()).item()
+    replay = dict(bits=srv.res_bits, rel_l2=rel,
+                  bound=REPLAY_REL_L2.get(srv.res_bits, STEPSERVE_REL_L2))
+    return ({k: path_check_summary(c) for k, c in checks.items()}, expected, replay,
+            (tick, full, base))
+
+
+def phase_stepserve_sd3(torch, dev, params, seed):
+    """8b. The StepServer on phase 8's SD3.5-medium tree with per-sample
+    routing, a full-width random SD3 VAE (fp32, its 1.5305 / 0.0609
+    factors), STEPSERVE_SLOTS slots, 28 steps, CFG 7.0 inside the tick, in
+    each mode of SD3_STEPSERVE_MODES; then the exact server's final latents
+    against UniGenSD3.denoise of the same requests, and
+    sd3_server_path_check on a hybrid server."""
+    import dataclasses
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.models import vae as vae_lib
+    from unigen_tpu_torch.models.unigen_sd3 import UniGenSD3
+    from unigen_tpu_torch.serving_steps import StepServer
+    run = presets.baseline_configs()["sd3_depth_28step"]
+    cfg, steps, guidance, res = run["cfg"], run["steps"], run["guidance"], run["resolution"]
+    cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+        cfg.control, moe=dataclasses.replace(cfg.control.moe, batch_mode="per_sample")))
+    bb = cfg.sd3
+    vae_cfg = vae_lib.VAEConfig(scaling_factor=1.5305, shift_factor=0.0609)
+    vae_params = vae_lib.init_vae_params(
+        vae_cfg, gen=torch.Generator(device=dev).manual_seed(seed + 21), device=dev)
+    lat = res // vae_cfg.downscale
+    n_sus = SD3_STEPSERVE_REQUESTS
+    reqs = stepserve_requests(torch, dev, bb, vae_cfg, 2 + n_sus, res, seed + 22, SD3_TXT,
+                              (bb.in_channels, lat, lat))
+    lines = {}
+    for name, knobs in SD3_STEPSERVE_MODES:
+        srv = StepServer(cfg, params, vae_cfg, vae_params, batch_size=STEPSERVE_SLOTS,
+                         num_inference_steps=steps, guidance_scale=guidance,
+                         height=res, width=res, device=dev, **knobs)
+        lines[name] = drive_server(
+            torch, dev, srv, reqs, n_sus, "stepserve_sd3",
+            lambda calls: sd3_forward_launches(cfg, calls), mode=name, knobs=knobs,
+            steps=steps, guidance=guidance, resolution=res)
+    # the exact server against the model's CFG denoise of the same four
+    # requests at SD3_CHECK_STEPS steps (a server knob): an exact tick runs
+    # all 4 slots, so its forwards have the denoise's shapes at b=4
+    part = reqs[2:2 + STEPSERVE_SLOTS]
+    srv = StepServer(cfg, params, vae_cfg, vae_params, batch_size=STEPSERVE_SLOTS,
+                     num_inference_steps=SD3_CHECK_STEPS, guidance_scale=guidance,
+                     height=res, width=res, device=dev)
+    rows, order = decode_log(srv), []
+    try:
+        futs = serve_requests(torch, srv, part, list(range(len(part))), order, {})
+        for f in futs.values():
+            f.result(timeout=900)
+    finally:
+        srv.close()
+    got = dict(zip(order, rows))
+    cond = torch.cat([srv._encode(r["control_pixels"]) for r in part])
+    x = {k: torch.cat([r[k] for r in part])
+         for k in ("latents", "prompt_embeds", "pooled", "cond_pooled")}
+    want = UniGenSD3(cfg, params, device=dev).denoise(
+        x["latents"], cond, x["prompt_embeds"], x["pooled"], x["cond_pooled"],
+        num_steps=SD3_CHECK_STEPS, guidance_scale=guidance)
+    rels = []
+    for j, r in enumerate(part):
+        init = r["latents"].double()
+        d_want = want[j:j + 1].double() - init
+        rels.append(((got[j].double() - init - d_want).norm() / d_want.norm()).item())
+
+    srv = StepServer(cfg, params, vae_cfg, vae_params, batch_size=STEPSERVE_SLOTS,
+                     num_inference_steps=steps, guidance_scale=guidance, height=res,
+                     width=res, device=dev, **dict(SD3_STEPSERVE_MODES)["hybrid_8_2"])
+    try:
+        path_check, expected, replay, outs = sd3_server_path_check(
+            torch, srv, x, cond, guidance)
+    finally:
+        srv.close()
+    emit(dict(phase="stepserve_sd3_check", reference="UniGenSD3.denoise (CFG on the "
+              "batch axis) of the same requests", mode="exact", requests=len(rels),
+              steps=SD3_CHECK_STEPS,
+              metric="relative L2 of the final latents' displacement from the noise",
+              max_rel_l2=max(rels), bound_rel_l2=STEPSERVE_REL_L2,
+              path_check=path_check, expected_calls=expected, replay_vs_full=replay))
+    if not max(rels) <= STEPSERVE_REL_L2:
+        raise SystemExit(f"stepserve_sd3: exact server differs from the denoise: {rels}")
+    bad = {k: c for k, c in path_check.items()
+           if set(c) != {"flash_attention"} or c["flash_attention"]["disagree"]
+           or c["flash_attention"]["calls"] != expected[k]}
+    if bad or not replay["rel_l2"] <= replay["bound"] \
+            or not all(torch.isfinite(t.float()).all() for t in outs):
+        raise SystemExit(f"stepserve_sd3: a kernel call of the server's forwards "
+                         f"disagrees with its plain version or ran another number of "
+                         f"times ({bad}), or the replay differs from the full forward "
+                         f"({replay})")
+    return lines
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                      "port on one NVIDIA card")
@@ -2357,6 +3120,12 @@ def main() -> int:
     check_setmaxnreg(ptxas_line(build, [fa.KERNEL, fa.KERNEL_BWD, fa.KERNEL_NOROPE,
                                         fa.KERNEL_NOROPE_BWD, qm.KERNEL, qm.KERNEL_QUANT]))
 
+    t_phase = [time.time()]
+
+    def done(name):
+        print(f"# phase {name}: {time.time() - t_phase[0]:.1f}s", flush=True)
+        t_phase[0] = time.time()
+
     # 3. kernels at the main paths' shapes (the parent's first, with --parent)
     parent = parent_phase(args.parent, args.seed) if args.parent else None
     pmods = load_parent(args.parent) if args.parent else None
@@ -2374,35 +3143,55 @@ def main() -> int:
             raise SystemExit(f"kernel outputs changed bits: {changed + w_changed}")
         quant_vs_parent(torch, dev, pmods["quant"])
         host_bound_ab(torch, dev, pfa)
+    done("3 kernels")
 
     # 4. the serving slice
     params, serving = phase_slice(torch, dev)
+    done("4 slice")
 
     # 4b. the FLUX pipeline on the same tree (the text towers are freed
-    # before phase 5)
-    phase_pipeline(torch, dev, params, args.seed)
+    # here, the VAE after phase 4d)
+    vae_cfg, vae_params = phase_pipeline(torch, dev, params, args.seed)
+    torch.cuda.empty_cache()
+    done("4b pipeline")
+
+    # 4c. the StepServer in each mode, and its check; 4d. two resolutions
+    stepserve = phase_stepserve(torch, dev, params, vae_cfg, vae_params, args.seed)
+    done("4c stepserve")
+    phase_stepserve_multires(torch, dev, params, vae_cfg, vae_params, args.seed)
+    done("4d stepserve_multires")
+    del vae_params
     torch.cuda.empty_cache()
 
     # 5. the training slice
     launches = phase_train(torch, dev, presets.flux_full(), params, args.seed,
                            FLUX_FULL_TRAINABLE)
+    done("5 train")
 
     # 6. the Trainer on the same tree, fp32 activations
     phase_trainer(torch, dev, params, args.seed)
+    done("6 trainer")
 
     # 7. the W4A8 FLUX tree at 1024^2
     phase_flux_1024(torch, dev, params)
     del params
     torch.cuda.empty_cache()
+    done("7 flux_1024")
 
     # 7b. training with the shipped control values: rope-free control
     # attention and block experts, on a tree of its own
     blocks = phase_train_blocks(torch, dev, args.seed)
     torch.cuda.empty_cache()
+    done("7b train_blocks")
 
     # 8. the SD3 serving path, 9. the same at 1024^2
     model, sd3_launches = phase_sd3(torch, dev, args.seed)
+    done("8 sd3")
     phase_sd3_1024(torch, model, args.seed)
+    done("9 sd3_1024")
+    # 8b. the StepServer on the same SD3 tree, per-sample routing
+    sd3_serve = phase_stepserve_sd3(torch, dev, model.params, args.seed)
+    done("8b stepserve_sd3")
 
     # 10. kernels line: the dominant main-path shape of each kernel; launches
     # from the main path that runs it (training for the FLUX kernels, with
@@ -2450,6 +3239,10 @@ def main() -> int:
                              "its producer")
         if name in serving:
             entry["serving_launches"] = serving[name]
+        if name in stepserve["exact"]["launches"]:
+            entry["stepserve_launches"] = stepserve["exact"]["launches"][name]
+        if name in sd3_serve["exact"]["launches"]:
+            entry["stepserve_sd3_launches"] = sd3_serve["exact"]["launches"][name]
         if name == "flash_attention":
             entry["train_blocks_launches"] = blocks[name]
         if name in ("flash_attention_rope",) + BWD_NAMES:

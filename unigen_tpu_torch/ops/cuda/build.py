@@ -82,6 +82,18 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+_count_lock = threading.Lock()
+
+
+def count(counters: dict, name: str, n: int = 1):
+    """Add ``n`` to the launch counter ``name`` of ``counters`` (a wrapper
+    module's globals). Under one lock for every wrapper: the bucket workers
+    of a MultiResolutionStepServer launch from several threads, and ``+=``
+    on a module global is not atomic."""
+    with _count_lock:
+        counters[name] += n
+
+
 def check(err: int, what: str):
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

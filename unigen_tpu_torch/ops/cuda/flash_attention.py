@@ -137,8 +137,7 @@ def _rotate(jobs):
     build.check(_entry("rope_rotate")(
         *ptrs, *ints, len(jobs), x.shape[0] * x.shape[1], _stream(x)),
         KERNEL + "_rotate")
-    global rotate_launches
-    rotate_launches += 1
+    build.count(globals(), "rotate_launches")
     return outs
 
 
@@ -283,9 +282,8 @@ def flash_attention_rope_fwd(q, k, v, cos, sin, kcos, ksin, with_lse=False):
         None if lse is None else lse.data_ptr(), b * h, sq, k.shape[2],
         scale_log2, int(fp32), _stream(q))
     build.check(err, KERNEL)
-    global launches, rotate_launches
-    rotate_launches += 1
-    launches += 1
+    build.count(globals(), "rotate_launches")
+    build.count(globals(), "launches")
     return out, lse
 
 
@@ -319,8 +317,7 @@ def flash_attention_rope_bwd_dkv(q, k, v, do, lse, drow, cos, sin, kcos, ksin,
     build.check(_entry("flash_attention_rope_bwd_dkv")(
         *ptrs, kcos.data_ptr(), ksin.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *rest), KERNEL_BWD + "_dkv")
-    global dkv_launches
-    dkv_launches += 1
+    build.count(globals(), "dkv_launches")
     return dk, dv
 
 
@@ -334,8 +331,7 @@ def flash_attention_rope_bwd_dq(q, k, v, do, lse, drow, cos, sin, kcos, ksin,
     build.check(_entry("flash_attention_rope_bwd_dq")(
         *ptrs, cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), *rest),
         KERNEL_BWD + "_dq")
-    global dq_launches
-    dq_launches += 1
+    build.count(globals(), "dq_launches")
     return dq
 
 
@@ -468,9 +464,8 @@ def flash_attention_fwd(q, k, v, with_lse=False):
                                                     for x in (kb, vb, out, lse)),
         b * h, sq, k.shape[2], d, scale_log2, int(fp32), _stream(q))
     build.check(err, KERNEL_NOROPE)
-    global norope_launches, rotate_launches
-    rotate_launches += int(fp32)
-    norope_launches += 1
+    build.count(globals(), "rotate_launches", int(fp32))
+    build.count(globals(), "norope_launches")
     return out, lse
 
 
@@ -489,10 +484,9 @@ def _norope_bwd_launch(operands, scratch, q, k, lse, drow, dq=None, dk=None, dv=
         *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
         b * h, sq, k.shape[2], d, scale, scale * math.log2(math.e), int(fp32),
         _stream(q)), KERNEL_NOROPE_BWD)
-    global rotate_launches, norope_dq_launches, norope_dkv_launches
-    rotate_launches += int(scratch[0] is not None)
-    norope_dkv_launches += int(dk is not None)
-    norope_dq_launches += int(dq is not None)
+    build.count(globals(), "rotate_launches", int(scratch[0] is not None))
+    build.count(globals(), "norope_dkv_launches", int(dk is not None))
+    build.count(globals(), "norope_dq_launches", int(dq is not None))
 
 
 def _norope_bwd_operands(q, k, v, do):

@@ -149,8 +149,7 @@ def _launch(xq, xs, w_q4, w_scale, out_dtype, bm, split):
         out.data_ptr(), None if partial is None else partial.data_ptr(),
         m, n, k, bm, split, int(out_dtype == torch.bfloat16), _stream(xq))
     build.check(err, KERNEL)
-    global launches
-    launches += 1
+    build.count(globals(), "launches")
     return out
 
 
@@ -178,8 +177,7 @@ def w4a8_matmul(xq: torch.Tensor, xs: torch.Tensor, w_q4: torch.Tensor,
         xq.data_ptr(), xs.data_ptr(), w_q4.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16), _stream(xq))
     build.check(err, KERNEL)
-    global general_launches
-    general_launches += 1
+    build.count(globals(), "general_launches")
     return out
 
 
@@ -203,6 +201,5 @@ def quantize_act(x: torch.Tensor):
         x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, int(x.dtype == torch.float32),
         _stream(x))
     build.check(err, KERNEL_QUANT)
-    global quantize_launches
-    quantize_launches += 1
+    build.count(globals(), "quantize_launches")
     return xq, xs
