@@ -114,6 +114,37 @@ Phases, in order; any failure exits non-zero:
      exact server against UniGenSD3.denoise of the same 4 requests, and
      every kernel call of one exact 4-slot tick and of a one-slot gathered
      full and base-with-replay forward against its plain version.
+  8c. sd3_pipeline (after 8b): a random SD3.5-medium checkpoint directory
+     at full size in the diffusers layout (transformer and T5-XXL bf16,
+     CLIP-L and CLIP-G fp16, the VAE fp32, a UniGen adapter; drawn on the
+     card from --seed, streamed into safetensors files under
+     build/checkpoints after a free-space check) is loaded by
+     load_sd3_pipeline as an int4 base, an int8 adapter and W4A8 text
+     towers: an "sd3_load" line (bytes written, seconds and GB/s read per
+     component, seconds to convert, each quantization's seconds, bytes
+     before and after and peak device bytes); sd3_load_check (the loaded,
+     donated quantization against the same walk without donation of the
+     same checkpoint loaded unquantized, bit for bit); then, SD3_PIPE_RUNS
+     times in turn, in each mode of SD3_PIPE_MODES four b=1 requests at
+     512^2, 28 steps, CFG 7 with a negative prompt through
+     MicroBatchServer(batch_size=2): an "sd3_pipeline" line per mode and
+     run with the fields of 4b (residual-cache bytes read from the captured
+     tensors, peak bytes also above the phase's start) and launches equal
+     to expected_sd3_pipeline_launches plus the text towers' encodes;
+     sd3_pipeline_path_check (every kernel call of one CFG forward, one T5
+     and one CLIP-G encode against its plain version, with the W4A8 shapes
+     they ran), sd3_pipeline_profile (device time by group of a CFG
+     forward at the served batch and of a cfg_cache replay step) and
+     sd3_pipeline_composition ("balanced" against its forward
+     calls written out, bit for bit).
+  4e. load_flux (after 8c): load_flux_pipeline on a full-width FLUX
+     directory at LOAD_FLUX_DEPTH (random transformer, the reference's .bin
+     adapter layout, 8c's VAE, CLIP-L and T5 files linked), W4A8 with W4A8
+     text towers through a serving-tree cache, twice: the cold start and the
+     restart from the cache (the same tree bit for bit); two requests
+     through its __call__ with launches equal to the formula, and
+     load_flux_path_check (one forward and one T5 encode at M = 512). The
+     checkpoint directories are removed at the end.
  10. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
@@ -131,6 +162,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
+import gc
 import itertools
 import json
 import math
@@ -162,6 +195,18 @@ W4A8_CASES = [(2, 3072, 18432), (1536, 3072, 3072), (1536, 12288, 3072),
 # at the tile quant_matmul.tile picks)
 W4A8_STEPSERVE_CASES = [(1, 3072, 18432), (4, 3072, 18432), (4, 3072, 9216),
                         (4096, 3072, 3072), (6144, 3072, 12288), (6144, 15360, 3072)]
+# the loaded pipelines' new shapes (phases 8c, 4e): the SD3.5-medium W4A8
+# base at the CFG batch of 2 requests (4 x 1024 image rows, 4 x 333 context
+# rows, 4 AdaLN / embedder rows), T5-XXL at 256 (SD3) and 512 (FLUX) tokens,
+# CLIP-L and CLIP-G at 77 tokens and their pooled projections
+W4A8_LOAD_CASES = [(4096, 1536, 1536), (4096, 1536, 6144), (4096, 6144, 1536),
+                   (1332, 1536, 1536), (1332, 1536, 6144), (1332, 6144, 1536),
+                   (1332, 4096, 1536), (4, 1536, 9216), (4, 1536, 13824),
+                   (4, 1536, 3072), (4, 1536, 1536), (4, 2048, 1536),
+                   (256, 4096, 4096), (256, 4096, 10240), (256, 10240, 4096),
+                   (512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096),
+                   (77, 768, 768), (77, 768, 3072), (77, 3072, 768), (1, 768, 768),
+                   (77, 1280, 1280), (77, 1280, 5120), (77, 5120, 1280), (1, 1280, 1280)]
 W4A8_REP = (2048, 3072, 3072)         # the kernels line's shape
 # the activation quantization at the path's (M, K) in bf16, and one fp32 row
 # (the Trainer's activations)
@@ -258,6 +303,18 @@ SD3_STEPSERVE_MODES = [
 SD3_STEPSERVE_REQUESTS = 2 * STEPSERVE_SLOTS
 SD3_CHECK_STEPS = 4       # the server-vs-denoise check's steps a request
 MULTIRES_REQUESTS = {512: 4, 1024: 2}     # requests per bucket (resolution)
+# 8c: the loaded SD3.5-medium pipeline, four b=1 requests at 512^2 in each
+# mode; 4e: the loaded FLUX directory's depth (double, single blocks)
+SD3_PIPE_STEPS, SD3_PIPE_GUIDANCE = 28, 7.0
+SD3_NEGATIVE = "blurry, low quality"
+SD3_PIPE_RUNS = 2         # readings of each mode, each printed
+SD3_PIPE_MODES = [
+    ("exact", {}),
+    ("balanced", dict(quality_profile="balanced")),    # hybrid c=8, m=2
+    ("fast", dict(quality_profile="fast")),            # model cache k=4, order 1
+    ("control_interval_2_cfg_cache", dict(control_cache_interval=2, cfg_cache=True))]
+LOAD_FLUX_DEPTH = REDUCED_DEPTHS[1]
+CHECKPOINTS = Path(__file__).resolve().parent / "build" / "checkpoints"
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 # 65536 registers / 384 threads, rounded down to the allocation unit of 8:
 # the register count at entry of the setmaxnreg kernels (24 x 128 + 240 x 256
@@ -500,7 +557,8 @@ def shadowed_kernels(torch, checks):
         out, ref = kernel_qm(*args), qm.w4a8_matmul_ref(*args)
         checks.setdefault("w4a8_matmul", []).append(dict(
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
-            ok=torch.equal(out, ref)))
+            ok=torch.equal(out, ref),
+            shape=[args[0].shape[0], args[0].shape[1], args[2].shape[1]]))
         return out
 
     def quantize(x):
@@ -1014,6 +1072,7 @@ def phase_kernels(torch, dev, seed, pqm=None):
 
     rows["w4a8_matmul"] = [w4a8_row(torch, dev, g, *case, pqm=pqm)
                            for case in W4A8_CASES + W4A8_STEPSERVE_CASES]
+    rows["w4a8_matmul"] += [w4a8_row(torch, dev, g, *case) for case in W4A8_LOAD_CASES]
     rows["quantize_act"] = [quantize_row(torch, dev, g, *case) for case in QUANT_CASES]
     rows.update(backward_rows(torch, dev, g, ids))
     rows.update(norope_backward_rows(torch, dev, g))
@@ -1341,7 +1400,9 @@ def quantized_calls(params, cfg, leaf: str, again: bool = False) -> int:
     condition embedder's once per condition, any other once. ``again``:
     the calls that the remat bodies (base + control double block i >= 1
     with its add linear, base + control single block with its add linear)
-    run once more in the backward."""
+    run once more in the backward. The context branch of the control double
+    blocks and of the shared expert's weave_text (the context's output
+    projection and ``ff_context``) is never run: their callers discard it."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb = cfg.flux
     if again:
@@ -1354,7 +1415,16 @@ def quantized_calls(params, cfg, leaf: str, again: bool = False) -> int:
                 "shared_expert": cfg.condition_nums, "condition_embed": cfg.condition_nums}
         default = 1
     return sum(uses.get(path[1], default) for path, _ in tree_leaves_with_path(params)
-               if path[-1] == leaf)
+               if path[-1] == leaf and not discarded_context(path))
+
+
+def discarded_context(path) -> bool:
+    """A leaf of a control block's context branch that no forward runs: the
+    control double blocks (FLUX), the control joint blocks (SD3) and the
+    shared expert's weave_text return only their sample stream."""
+    control_double = path[:2] in (("control", "double_blocks"), ("control", "joint_blocks")) \
+        or path[:3] == ("control", "shared_expert", "weave_text")
+    return control_double and ("ff_context" in path or "to_add_out" in path)
 
 
 def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
@@ -1591,7 +1661,7 @@ def expected_pipeline_launches(params, cfg, steps):
 
 def step_kinds(mode, refreshes, steps):
     """(n_full, n_base, n_skip) of one denoise loop from the pipeline's cache
-    mode (``pipelines.flux.resolve_cache_mode``) and its
+    mode (``pipelines.caching.resolve_cache_mode``) and its
     ``last_cache_refreshes``: the control cache replays residuals between
     refreshes, the model cache skips the transformer."""
     if mode.exact:
@@ -1716,7 +1786,8 @@ def phase_pipeline(torch, dev, params, seed):
     from unigen_tpu_torch.models.clip_text import CLIPTextConfig, init_clip_params
     from unigen_tpu_torch.models.t5_text import T5Config, init_t5_params
     from unigen_tpu_torch.pipelines import scheduling
-    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline, resolve_cache_mode
+    from unigen_tpu_torch.pipelines.caching import resolve_cache_mode
+    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline
     from unigen_tpu_torch.serving import MicroBatchServer
     from unigen_tpu_torch.utils import param_bytes, tree_map
 
@@ -3059,6 +3130,1134 @@ def phase_stepserve_sd3(torch, dev, params, seed):
     return lines
 
 
+# ------------------------------------------------------------ checkpoint directories
+
+def _lin_shapes(sd, name, i, o, bias=True):
+    sd[f"{name}.weight"] = (o, i)
+    if bias:
+        sd[f"{name}.bias"] = (o,)
+
+
+def _time_text_shapes(sd, root, d, pooled_dim):
+    for e, ind in (("timestep_embedder", 256), ("text_embedder", pooled_dim)):
+        _lin_shapes(sd, f"{root}.{e}.linear_1", ind, d)
+        _lin_shapes(sd, f"{root}.{e}.linear_2", d, d)
+
+
+def _flux_attn_shapes(sd, p, d, hd, context):
+    for n in ("to_q", "to_k", "to_v"):
+        _lin_shapes(sd, f"{p}.{n}", d, d)
+    sd[f"{p}.norm_q.weight"] = sd[f"{p}.norm_k.weight"] = (hd,)
+    if context:
+        for n in ("to_out.0", "add_q_proj", "add_k_proj", "add_v_proj", "to_add_out"):
+            _lin_shapes(sd, f"{p}.{n}", d, d)
+        sd[f"{p}.norm_added_q.weight"] = sd[f"{p}.norm_added_k.weight"] = (hd,)
+
+
+def _flux_double_shapes(sd, p, d, hd):
+    _lin_shapes(sd, f"{p}.norm1.linear", d, 6 * d)
+    _lin_shapes(sd, f"{p}.norm1_context.linear", d, 6 * d)
+    _flux_attn_shapes(sd, f"{p}.attn", d, hd, True)
+    for ff in ("ff", "ff_context"):
+        _lin_shapes(sd, f"{p}.{ff}.net.0.proj", d, 4 * d)
+        _lin_shapes(sd, f"{p}.{ff}.net.2", 4 * d, d)
+
+
+def _flux_single_shapes(sd, p, d, hd):
+    _lin_shapes(sd, f"{p}.norm.linear", d, 3 * d)
+    _flux_attn_shapes(sd, f"{p}.attn", d, hd, False)
+    _lin_shapes(sd, f"{p}.proj_mlp", d, 4 * d)
+    _lin_shapes(sd, f"{p}.proj_out", 5 * d, d)
+
+
+def flux_transformer_shapes(bb):
+    """diffusers FluxTransformer2DModel's tensor names and shapes."""
+    sd, d, hd = {}, bb.inner_dim, bb.attention_head_dim
+    _lin_shapes(sd, "x_embedder", bb.in_channels, d)
+    _lin_shapes(sd, "context_embedder", bb.joint_attention_dim, d)
+    _time_text_shapes(sd, "time_text_embed", d, bb.pooled_projection_dim)
+    if bb.guidance_embeds:
+        _lin_shapes(sd, "time_text_embed.guidance_embedder.linear_1", 256, d)
+        _lin_shapes(sd, "time_text_embed.guidance_embedder.linear_2", d, d)
+    for i in range(bb.num_layers):
+        _flux_double_shapes(sd, f"transformer_blocks.{i}", d, hd)
+    for i in range(bb.num_single_layers):
+        _flux_single_shapes(sd, f"single_transformer_blocks.{i}", d, hd)
+    _lin_shapes(sd, "norm_out.linear", d, 2 * d)
+    _lin_shapes(sd, "proj_out", d, bb.in_channels)
+    return sd
+
+
+def flux_adapter_shapes(cfg):
+    """The reference UniGen FLUX adapter's names (trainable_control_modules:
+    control_* blocks, their add linears, the DeepSpeed MoE of modulated
+    experts, the shared expert) and shapes."""
+    bb, cc = cfg.flux, cfg.control
+    sd, d, hd, pd = {}, bb.inner_dim, bb.attention_head_dim, bb.pooled_projection_dim
+    n_cn, n_cn_s = bb.num_layers // cc.single_control_dev, \
+        bb.num_single_layers // cc.single_control_dev
+    e_num = cc.moe.num_experts(cfg.condition_nums)
+    _lin_shapes(sd, "control_x_embedder", bb.in_channels, d)
+    _lin_shapes(sd, "control_context_embedder", d, d)
+    for root in ("control_time_text_embed", "control_condition_embed"):
+        _time_text_shapes(sd, root, d, pd)
+    for i in range(n_cn):
+        _flux_double_shapes(sd, f"control_joint_trans_blocks.{i}", d, hd)
+        _lin_shapes(sd, f"controlnet_add_joint_blocks.{i}", d, d)
+    for i in range(n_cn_s):
+        _flux_single_shapes(sd, f"control_single_trans_blocks.{i}", d, hd)
+        _lin_shapes(sd, f"controlnet_add_single_blocks.{i}", d, d)
+    sd["moe.moe_layer.gate.wg.weight"] = (e_num, d)
+    for e in range(e_num):
+        for pair in (0, 1):
+            _lin_shapes(sd, f"moe.moe_layer.experts.deepspeed_experts.{e}.{pair}.0", d, d)
+            _lin_shapes(sd, f"moe.moe_layer.experts.deepspeed_experts.{e}.{pair}.1", pd, d)
+    _flux_double_shapes(sd, "shared_expert.0", d, hd)
+    _flux_double_shapes(sd, "shared_expert.1", d, hd)
+    return sd
+
+
+def _sd3_attn_shapes(sd, p, d, hd, qk, context, pre_only=False):
+    for n in ("to_q", "to_k", "to_v", "to_out.0"):
+        _lin_shapes(sd, f"{p}.{n}", d, d)
+    if qk:
+        sd[f"{p}.norm_q.weight"] = sd[f"{p}.norm_k.weight"] = (hd,)
+    if context:
+        for n in ("add_q_proj", "add_k_proj", "add_v_proj"):
+            _lin_shapes(sd, f"{p}.{n}", d, d)
+        if qk:
+            sd[f"{p}.norm_added_q.weight"] = sd[f"{p}.norm_added_k.weight"] = (hd,)
+        if not pre_only:
+            _lin_shapes(sd, f"{p}.to_add_out", d, d)
+
+
+def _sd3_block_shapes(sd, p, d, hd, qk, *, dual, last):
+    _lin_shapes(sd, f"{p}.norm1.linear", d, (9 if dual else 6) * d)
+    _lin_shapes(sd, f"{p}.norm1_context.linear", d, (2 if last else 6) * d)
+    _sd3_attn_shapes(sd, f"{p}.attn", d, hd, qk, True, pre_only=last)
+    if dual:
+        _sd3_attn_shapes(sd, f"{p}.attn2", d, hd, qk, False)
+    ffs = ("ff",) if last else ("ff", "ff_context")
+    for ff in ffs:
+        _lin_shapes(sd, f"{p}.{ff}.net.0.proj", d, 4 * d)
+        _lin_shapes(sd, f"{p}.{ff}.net.2", 4 * d, d)
+
+
+def _patch_embed_shapes(sd, p, d, ch, patch, max_size):
+    sd[f"{p}.proj.weight"] = (d, ch, patch, patch)
+    sd[f"{p}.proj.bias"] = (d,)
+    sd[f"{p}.pos_embed"] = (1, max_size ** 2, d)
+
+
+def sd3_transformer_shapes(bb):
+    """diffusers SD3Transformer2DModel's tensor names and shapes."""
+    sd, d, hd, qk = {}, bb.inner_dim, bb.attention_head_dim, bool(bb.qk_norm)
+    _patch_embed_shapes(sd, "pos_embed", d, bb.in_channels, bb.patch_size,
+                        bb.pos_embed_max_size)
+    _time_text_shapes(sd, "time_text_embed", d, bb.pooled_projection_dim)
+    _lin_shapes(sd, "context_embedder", bb.joint_attention_dim, d)
+    dual = set(bb.dual_attention_layers)
+    for i in range(bb.num_layers):
+        _sd3_block_shapes(sd, f"transformer_blocks.{i}", d, hd, qk, dual=i in dual,
+                          last=i == bb.num_layers - 1)
+    _lin_shapes(sd, "norm_out.linear", d, 2 * d)
+    _lin_shapes(sd, "proj_out", d, bb.patch_size ** 2 * bb.out_channels)
+    return sd
+
+
+def sd3_adapter_shapes(cfg):
+    """The reference UniGenSD3 adapter's names and shapes (the interleaved
+    control stack, its add linears, the condition patch embed with its
+    position table, block experts of two SD3 single blocks, the shared
+    expert whose weave_text is context-pre-only with dual attention)."""
+    bb, cc = cfg.sd3, cfg.control
+    sd, d, hd, qk = {}, bb.inner_dim, bb.attention_head_dim, bool(bb.qk_norm)
+    n_cn = cc.num_layers or bb.num_layers
+    _patch_embed_shapes(sd, "control_pos_embed_input", d,
+                        bb.in_channels + cc.extra_conditioning_channels, bb.patch_size,
+                        bb.pos_embed_max_size)
+    for root in ("control_time_text_embed", "control_condition_embed"):
+        _time_text_shapes(sd, root, d, bb.pooled_projection_dim)
+    _lin_shapes(sd, "control_context_embedder", d, d)
+    for i in range(n_cn):
+        _sd3_block_shapes(sd, f"control_transformer_blocks.{i}", d, hd, qk, dual=False,
+                          last=False)
+        _lin_shapes(sd, f"controlnet_add_blocks.{i}", d, d)
+    e_num = cc.moe.num_experts(cfg.condition_nums)
+    sd["moe.moe_layer.gate.wg.weight"] = (e_num, d)
+    for e in range(e_num):
+        for pair in (0, 1):
+            p = f"moe.moe_layer.experts.deepspeed_experts.{e}.{pair}"
+            _lin_shapes(sd, f"{p}.norm1.linear", d, 6 * d)
+            _sd3_attn_shapes(sd, f"{p}.attn", d, hd, qk, False)
+            _lin_shapes(sd, f"{p}.ff.net.0.proj", d, 4 * d)
+            _lin_shapes(sd, f"{p}.ff.net.2", 4 * d, d)
+    _sd3_block_shapes(sd, "shared_expert.0", d, hd, qk, dual=False, last=False)
+    _sd3_block_shapes(sd, "shared_expert.1", d, hd, qk, dual=True, last=True)
+    return sd
+
+
+def clip_shapes(ccfg):
+    """transformers CLIPTextModel(WithProjection)'s names and shapes."""
+    d, it = ccfg.hidden_size, ccfg.intermediate_size
+    sd = {"text_model.embeddings.token_embedding.weight": (ccfg.vocab_size, d),
+          "text_model.embeddings.position_embedding.weight":
+              (ccfg.max_position_embeddings, d)}
+    for i in range(ccfg.num_layers):
+        p = f"text_model.encoder.layers.{i}"
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin_shapes(sd, f"{p}.self_attn.{n}", d, d)
+        _lin_shapes(sd, f"{p}.mlp.fc1", d, it)
+        _lin_shapes(sd, f"{p}.mlp.fc2", it, d)
+        for n in ("layer_norm1", "layer_norm2"):
+            sd[f"{p}.{n}.weight"] = sd[f"{p}.{n}.bias"] = (d,)
+    sd["text_model.final_layer_norm.weight"] = sd["text_model.final_layer_norm.bias"] = (d,)
+    if ccfg.projection_dim:
+        sd["text_projection.weight"] = (ccfg.projection_dim, d)
+    return sd
+
+
+def t5_shapes(tcfg):
+    """transformers T5EncoderModel's names and shapes (the embedding once, as
+    ``shared``)."""
+    dm, inner = tcfg.d_model, tcfg.num_heads * tcfg.d_kv
+    sd = {"shared.weight": (tcfg.vocab_size, dm),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+              (tcfg.relative_attention_num_buckets, tcfg.num_heads)}
+    for i in range(tcfg.num_layers):
+        p = f"encoder.block.{i}.layer"
+        for n in ("q", "k", "v"):
+            sd[f"{p}.0.SelfAttention.{n}.weight"] = (inner, dm)
+        sd[f"{p}.0.SelfAttention.o.weight"] = (dm, inner)
+        sd[f"{p}.1.DenseReluDense.wi_0.weight"] = (tcfg.d_ff, dm)
+        sd[f"{p}.1.DenseReluDense.wi_1.weight"] = (tcfg.d_ff, dm)
+        sd[f"{p}.1.DenseReluDense.wo.weight"] = (dm, tcfg.d_ff)
+        sd[f"{p}.0.layer_norm.weight"] = sd[f"{p}.1.layer_norm.weight"] = (dm,)
+    sd["encoder.final_layer_norm.weight"] = (dm,)
+    return sd
+
+
+def vae_shapes(vcfg):
+    """diffusers AutoencoderKL's names and shapes."""
+    sd = {}
+
+    def conv(name, ci, co, k=3):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = (co, ci, k, k), (co,)
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = sd[f"{name}.bias"] = (c,)
+
+    def res(p, ci, co):
+        norm(f"{p}.norm1", ci)
+        conv(f"{p}.conv1", ci, co)
+        norm(f"{p}.norm2", co)
+        conv(f"{p}.conv2", co, co)
+        if ci != co:
+            conv(f"{p}.conv_shortcut", ci, co, 1)
+
+    def mid(p, c):
+        res(f"{p}.mid_block.resnets.0", c, c)
+        norm(f"{p}.mid_block.attentions.0.group_norm", c)
+        for n in ("to_q", "to_k", "to_v", "to_out.0"):
+            _lin_shapes(sd, f"{p}.mid_block.attentions.0.{n}", c, c)
+        res(f"{p}.mid_block.resnets.1", c, c)
+
+    chs, lpb = vcfg.block_out_channels, vcfg.layers_per_block
+    conv("encoder.conv_in", vcfg.in_channels, chs[0])
+    ci = chs[0]
+    for i, co in enumerate(chs):
+        for j in range(lpb):
+            res(f"encoder.down_blocks.{i}.resnets.{j}", ci if j == 0 else co, co)
+        if i < len(chs) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", co, co)
+        ci = co
+    mid("encoder", chs[-1])
+    norm("encoder.conv_norm_out", chs[-1])
+    conv("encoder.conv_out", chs[-1], 2 * vcfg.latent_channels)
+    rev = list(reversed(chs))
+    conv("decoder.conv_in", vcfg.latent_channels, rev[0])
+    mid("decoder", rev[0])
+    ci = rev[0]
+    for i, co in enumerate(rev):
+        for j in range(lpb + 1):
+            res(f"decoder.up_blocks.{i}.resnets.{j}", ci if j == 0 else co, co)
+        if i < len(rev) - 1:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", co, co)
+        ci = co
+    norm("decoder.conv_norm_out", rev[-1])
+    conv("decoder.conv_out", rev[-1], vcfg.in_channels)
+    return sd
+
+
+SAFETENSORS_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
+
+
+def checkpoint_value(torch, name, shape, dtype, gen, device, fixed=None):
+    """A checkpoint tensor on ``device``: ``fixed[name]`` where given (a
+    position table), else drawn from ``gen``: a norm's 1-D weight
+    1 + N(0, 0.02), any other N(0, 0.02)."""
+    if fixed and name in fixed:
+        return fixed[name].to(device, dtype)
+    out = torch.empty(shape, dtype=dtype, device=device).normal_(0.0, 0.02, generator=gen)
+    if len(shape) == 1 and "norm" in name and name.endswith(".weight"):
+        out += 1.0
+    return out
+
+
+def sd3_tables(torch, cfg, device):
+    """The SD3 PatchEmbed sincos tables [1, max_size^2, D] of the base and
+    of the control's condition embed, as the checkpoints hold them."""
+    from unigen_tpu_torch.ops.packing import sincos_2d_pos_embed
+    bb = cfg.sd3
+    table = sincos_2d_pos_embed(bb.inner_dim, bb.pos_embed_max_size,
+                                bb.sample_size // bb.patch_size, device=device)[None]
+    return {"pos_embed.pos_embed": table, "control_pos_embed_input.pos_embed": table}
+
+
+def write_safetensors(torch, path, shapes, dtype, gen, device, fixed=None):
+    """Stream the tensors of ``shapes`` ({name: shape}, in order) into one
+    safetensors file, each drawn on ``device`` (checkpoint_value) and written
+    as it comes (``fixed`` as in checkpoint_value): the 8-byte header
+    length, the JSON header, the raw bytes.
+    -> bytes written."""
+    import struct
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape in shapes.items():
+        n = math.prod(shape) * itemsize
+        header[name] = {"dtype": SAFETENSORS_NAMES[str(dtype).split(".")[-1]],
+                        "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, shape in shapes.items():
+            t = checkpoint_value(torch, name, shape, dtype, gen, device, fixed)
+            f.write(t.reshape(-1).view(torch.uint8).cpu().numpy().data)
+    return 8 + len(head) + off
+
+
+def write_component(torch, dirpath, shapes, dtype, gen, device, config=None,
+                    shards=1, stem="model", fixed=None):
+    """A diffusers / transformers component directory: its config.json and
+    its tensors in ``shards`` safetensors files (named as the libraries name
+    sharded files, with their index). -> bytes written."""
+    dirpath.mkdir(parents=True, exist_ok=True)
+    if config is not None:
+        (dirpath / "config.json").write_text(json.dumps(config))
+    names = list(shapes)
+    per = -(-len(names) // shards)
+    total, index = 0, {}
+    for s in range(shards):
+        part = {n: shapes[n] for n in names[s * per:(s + 1) * per]}
+        fname = (f"{stem}.safetensors" if shards == 1
+                 else f"{stem}-{s + 1:05d}-of-{shards:05d}.safetensors")
+        total += write_safetensors(torch, dirpath / fname, part, dtype, gen, device, fixed)
+        index.update({n: fname for n in part})
+    if shards > 1:
+        (dirpath / f"{stem}.safetensors.index.json").write_text(
+            json.dumps({"metadata": {"total_size": total}, "weight_map": index}))
+    return total
+
+
+def write_reference_adapter_bins(torch, dirpath, shapes, dtype, gen, device):
+    """The reference trainer's adapter layout: one ``torch.save``d state dict
+    per top-level module, ``{module}_weights_{idx}.bin``, keys without the
+    module prefix. -> bytes written."""
+    dirpath.mkdir(parents=True, exist_ok=True)
+    by_module = {}
+    for name, shape in shapes.items():
+        module, rest = name.split(".", 1)
+        by_module.setdefault(module, {})[rest] = shape
+    total = 0
+    for idx, (module, part) in enumerate(sorted(by_module.items())):
+        sd = {k: checkpoint_value(torch, f"{module}.{k}", s, dtype, gen, device).cpu()
+              for k, s in part.items()}
+        path = dirpath / f"{module}_weights_{idx}.bin"
+        torch.save(sd, path)
+        total += path.stat().st_size
+    return total
+
+
+def checkpoint_bytes(shapes_by_dtype):
+    """Bytes of the tensors of (shapes, itemsize) pairs."""
+    return sum(math.prod(s) * size for shapes, size in shapes_by_dtype
+               for s in shapes.values())
+
+
+def require_disk(path, need):
+    """Stop the run unless the file system of ``path`` has ``need`` bytes free
+    and 2 GiB to spare."""
+    import shutil
+    path.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    if free < need + 2 ** 31:
+        raise SystemExit(f"{path}: {free / 2**30:.1f} GiB free, the checkpoint needs "
+                         f"{need / 2**30:.1f} GiB and 2 GiB to spare")
+    return free
+
+
+# ------------------------------------------------------------ loading and the SD3 pipeline
+
+def sd3_quantized_calls(params, cfg, leaf: str, replay: bool = False) -> int:
+    """Calls of the quantized linears whose codes are ``leaf`` in one
+    UniGen-SD3 forward: the dual and plain base stacks once per block, the
+    control joint stack and its add linears once per base block (without
+    the context branch the forward discards), any other once; a forward
+    replaying cached control outputs (``replay``) runs the base and the add
+    linears only."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    bb = cfg.sd3
+    n_dual = len(set(bb.dual_attention_layers) & set(range(bb.num_layers)))
+    uses = {("base", "dual_blocks"): n_dual,
+            ("base", "plain_blocks"): bb.num_layers - n_dual - 1,
+            ("control", "joint_blocks"): bb.num_layers,
+            ("control", "add_blocks"): bb.num_layers}
+    return sum(uses.get(path[:2], 1) for path, _ in tree_leaves_with_path(params)
+               if path[-1] == leaf and not discarded_context(path)
+               and not (replay and path[0] == "control" and path[1] != "add_blocks"))
+
+
+def text_quantized_calls(tree, leaf: str) -> int:
+    """Calls of the quantized linears of one CLIP or T5 encode (a stacked
+    layer leaf once per layer)."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    return sum(t.shape[0] if path[0] == "layers" else 1
+               for path, t in tree_leaves_with_path(tree) if path[-1] == leaf)
+
+
+def text_launches(*trees):
+    """W4A8 and activation-quantization launches of one encode by each tree."""
+    w4 = sum(text_quantized_calls(t, "w_q4") for t in trees)
+    return {"w4a8_matmul": w4, "w4a8_general": 0,
+            "quantize_act": w4 + sum(text_quantized_calls(t, "w_q") for t in trees)}
+
+
+def sd3_forward_launches_quantized(params, cfg, batch, replay=False):
+    """Kernel launches of one UniGen-SD3 forward of a (W4A8 / W8A8) tree:
+    rope-free attention (expected_sd3_launches, or the replay's), W4A8 and
+    the activation quantization of every quantized linear."""
+    w4 = sd3_quantized_calls(params, cfg, "w_q4", replay)
+    return {"flash_attention": (expected_sd3_replay_launches(cfg) if replay
+                                else expected_sd3_launches(cfg, batch)),
+            "w4a8_matmul": w4, "w4a8_general": 0,
+            "quantize_act": w4 + sd3_quantized_calls(params, cfg, "w_q", replay)}
+
+
+def add_counts(*parts):
+    out = {}
+    for n, counts in parts:
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + n * v
+    return nonzero(out)
+
+
+def expected_sd3_pipeline_launches(params, cfg, kinds):
+    """Launches of SD3 pipeline denoise loops: ``kinds`` lists (batch,
+    n_full, n_base) per loop; a full step runs one forward on the CFG pair,
+    a replaying step (the control cache's, the hybrid's base step, a
+    cfg_cache step on the positive half) a replay forward, a skip step
+    none."""
+    parts = []
+    for batch, n_full, n_base in kinds:
+        parts += [(n_full, sd3_forward_launches_quantized(params, cfg, 2 * batch)),
+                  (n_base, sd3_forward_launches_quantized(params, cfg, 2 * batch, True))]
+    return add_counts(*parts)
+
+
+def sd3_residual_cache_bytes(cfg, batch, s_img, bits, itemsize=2):
+    """Bytes of the SD3 control-output cache over the CFG pair: one
+    [n_base, 2B, S_img, D] stack, in the pipeline's dtype (``itemsize``
+    bytes, bf16 by default) or int8 / packed int4 codes with an fp32 scale
+    a token."""
+    bb = cfg.sd3
+    per_token = {16: itemsize * bb.inner_dim, 8: bb.inner_dim + 4, 4: bb.inner_dim // 2 + 4}
+    return bb.num_layers * 2 * batch * s_img * per_token[bits]
+
+
+@contextlib.contextmanager
+def residual_probe(pipe, held):
+    """Append to ``held`` the bytes of every control-residual cache that
+    ``pipe.generate``'s forwards capture, read from the tensors themselves,
+    by wrapping the forward that the SD3 pipeline's ``denoise`` is handed."""
+    from unigen_tpu_torch.utils import param_bytes
+    real, saved = pipe.denoise, vars(pipe).get("denoise")
+
+    def denoise(mode, latents, fwd, *a, **kw):
+        def probed(lat, i, **cache):
+            raw, outs = fwd(lat, i, **cache)
+            if cache.get("return_control_residuals"):
+                held.append(param_bytes(outs["control_residuals"]))
+            return raw, outs
+        return real(mode, latents, probed, *a, **kw)
+    pipe.denoise = denoise
+    try:
+        yield held
+    finally:
+        if saved is None:
+            del pipe.denoise
+        else:
+            pipe.denoise = saved           # an outer wrapper, as stage_timer's
+
+
+@contextlib.contextmanager
+def load_timer(torch, stats):
+    """Time the loader's parts by wrapping the bridge's entry points in their
+    modules: each checkpoint directory's read (its files read through once
+    first, so ``read_s`` is the host read and the lazy mapping after it
+    finds the pages in memory), each converter (read pages to the card,
+    transpose, cast), and each quantization (seconds, the tree's bytes
+    before and after, the peak device bytes while it ran)."""
+    from unigen_tpu_torch.io import torch_bridge as tb
+    from unigen_tpu_torch.io import torch_bridge_sd3 as tb3
+    from unigen_tpu_torch.ops import quant
+    from unigen_tpu_torch.pipelines import loading
+    from unigen_tpu_torch.utils import param_bytes
+    buf = bytearray(64 << 20)
+
+    def read_through(path):
+        files = [p for p in sorted(Path(path).iterdir())
+                 if p.suffix in (".safetensors", ".bin") and p.is_file()]
+        t0, n = time.perf_counter(), 0
+        for p in files:
+            with open(p, "rb") as f:
+                while (got := f.readinto(buf)):
+                    n += got
+        dt = time.perf_counter() - t0
+        stats.setdefault("read", {})[Path(path).name] = dict(
+            bytes=n, s=dt, gb_per_s=n / dt / 1e9 if dt else None)
+
+    def reader(real):
+        def read(path, *a, **kw):
+            if Path(path).is_dir():
+                read_through(path)
+            return real(path, *a, **kw)
+        return read
+
+    def converter(name, real):
+        def convert(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            stats.setdefault("convert_s", {})
+            stats["convert_s"][name] = stats["convert_s"].get(name, 0.0) + \
+                time.perf_counter() - t0
+            return out
+        return convert
+
+    def quantizer(name, real):
+        def quantize(*a, **kw):
+            before = param_bytes([x for x in a if isinstance(x, dict)])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            stats.setdefault("quantize", []).append(dict(
+                what=name, s=time.perf_counter() - t0, source_bytes=before,
+                quantized_bytes=quant.quantized_bytes(out),
+                resident_bytes_before=resident,
+                peak_bytes=torch.cuda.max_memory_allocated()))
+            return out
+        return quantize
+
+    patches = [(tb, "read_checkpoint_dir", reader(tb.read_checkpoint_dir)),
+               (tb, "read_adapter_checkpoint", reader(tb.read_adapter_checkpoint))]
+    patches += [(mod, n, converter(n, getattr(mod, n))) for mod, n in (
+        (tb, "load_flux_transformer"), (tb, "load_unigen_adapter"), (tb, "load_clip_text"),
+        (tb, "load_t5_encoder"), (tb, "load_vae"), (tb3, "load_sd3_transformer"),
+        (tb3, "load_sd3_unigen_adapter"))]
+    patches += [(mod, n, quantizer(n, getattr(mod, n))) for mod, n in (
+        (loading, "_quantize_unigen_tree"), (loading, "_quantize_text"),
+        (quant, "quantize_unigen_serving_streaming"))]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
+    for mod, n, fn in patches:
+        setattr(mod, n, fn)
+    try:
+        yield stats
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def sd3_text_configs():
+    """The configs of SD3.5-medium's text encoders as its checkpoint holds
+    them: CLIP-L (quick-GELU) and CLIP-G (exact GELU), both with projection,
+    and T5-XXL; -> {subfolder: (port config, config.json)}."""
+    from unigen_tpu_torch.models.clip_text import CLIPTextConfig
+    from unigen_tpu_torch.models.t5_text import T5Config
+    out = {}
+    for sub, d, it, layers, heads, act in (("text_encoder", 768, 3072, 12, 12, "quick_gelu"),
+                                           ("text_encoder_2", 1280, 5120, 32, 20, "gelu")):
+        ccfg = CLIPTextConfig(hidden_size=d, intermediate_size=it, num_layers=layers,
+                              num_heads=heads, projection_dim=d, eos_token_id=2,
+                              hidden_act=act)
+        out[sub] = (ccfg, {"architectures": ["CLIPTextModelWithProjection"],
+                           "vocab_size": ccfg.vocab_size, "hidden_size": d,
+                           "intermediate_size": it, "num_hidden_layers": layers,
+                           "num_attention_heads": heads, "max_position_embeddings": 77,
+                           "projection_dim": d, "hidden_act": act, "eos_token_id": 2})
+    t5 = T5Config()
+    out["text_encoder_3"] = (t5, {"architectures": ["T5EncoderModel"],
+                                  "vocab_size": t5.vocab_size, "d_model": t5.d_model,
+                                  "d_kv": t5.d_kv, "d_ff": t5.d_ff,
+                                  "num_layers": t5.num_layers, "num_heads": t5.num_heads,
+                                  "relative_attention_num_buckets": 32,
+                                  "feed_forward_proj": "gated-gelu"})
+    return out
+
+
+def sd3_vae_config():
+    """SD3.5's AutoencoderKL config: FLUX's architecture, SD3's scaling."""
+    from unigen_tpu_torch.models.vae import VAEConfig
+    return VAEConfig(scaling_factor=1.5305, shift_factor=0.0609)
+
+
+def vae_config_json(vcfg):
+    return {"_class_name": "AutoencoderKL", "in_channels": vcfg.in_channels,
+            "out_channels": vcfg.in_channels, "latent_channels": vcfg.latent_channels,
+            "block_out_channels": list(vcfg.block_out_channels),
+            "layers_per_block": vcfg.layers_per_block,
+            "norm_num_groups": vcfg.norm_num_groups,
+            "scaling_factor": vcfg.scaling_factor, "shift_factor": vcfg.shift_factor}
+
+
+def write_sd3_checkpoint(torch, dev, root, cfg, seed):
+    """A random SD3.5 checkpoint directory of ``cfg``'s sizes in the diffusers
+    layout (transformer and T5 bf16, T5 in two shards; CLIP-L and CLIP-G
+    fp16; the VAE fp32; the text towers and the VAE of sd3_text_configs
+    and sd3_vae_config), each tensor drawn on ``dev`` from ``seed``, and
+    the UniGen adapter in ``root/adapter`` (bf16 safetensors). -> bytes per
+    component."""
+    bb = cfg.sd3
+    text, vae_cfg = sd3_text_configs(), sd3_vae_config()
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    parts = [("transformer", sd3_transformer_shapes(bb), bf16, 1,
+              dict(_class_name="SD3Transformer2DModel", sample_size=bb.sample_size,
+                   patch_size=bb.patch_size, in_channels=bb.in_channels,
+                   num_layers=bb.num_layers, attention_head_dim=bb.attention_head_dim,
+                   num_attention_heads=bb.num_attention_heads,
+                   joint_attention_dim=bb.joint_attention_dim,
+                   caption_projection_dim=bb.caption_projection_dim,
+                   pooled_projection_dim=bb.pooled_projection_dim,
+                   out_channels=bb.out_channels, pos_embed_max_size=bb.pos_embed_max_size,
+                   dual_attention_layers=list(bb.dual_attention_layers),
+                   qk_norm=bb.qk_norm), "diffusion_pytorch_model"),
+             ("adapter", sd3_adapter_shapes(cfg), bf16, 1, None, "diffusion_pytorch_model"),
+             ("text_encoder", clip_shapes(text["text_encoder"][0]), f16, 1,
+              text["text_encoder"][1], "model"),
+             ("text_encoder_2", clip_shapes(text["text_encoder_2"][0]), f16, 1,
+              text["text_encoder_2"][1], "model"),
+             ("text_encoder_3", t5_shapes(text["text_encoder_3"][0]), bf16, 2,
+              text["text_encoder_3"][1], "model"),
+             ("vae", vae_shapes(vae_cfg), f32, 1, vae_config_json(vae_cfg),
+              "diffusion_pytorch_model")]
+    require_disk(root, checkpoint_bytes([
+        (shapes, torch.empty((), dtype=dt).element_size()) for _, shapes, dt, *_ in parts]))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fixed = sd3_tables(torch, cfg, dev)
+    written = {sub: write_component(torch, root / sub, shapes, dt, gen, dev, config,
+                                    shards=shards, stem=stem, fixed=fixed)
+               for sub, shapes, dt, shards, config, stem in parts}
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "config.json").write_text(json.dumps(
+        {"_class_name": "FlowMatchEulerDiscreteScheduler", "num_train_timesteps": 1000,
+         "shift": 3.0}))
+    return written
+
+
+def set_stub_tokenizers(pipe, seed):
+    """SeededTokenizer stubs in place of the tokenizers the card host cannot
+    load (no transformers there), with the checkpoint's vocabularies."""
+    te = pipe.text_encoders
+    for i, key in enumerate(("clip_l", "clip_g")):
+        params, ccfg, _ = te[key]
+        te[key] = (params, ccfg, SeededTokenizer(ccfg.vocab_size, ccfg.vocab_size - 1,
+                                                 seed + i))
+    if te.get("t5"):
+        params, tcfg, _ = te["t5"]
+        te["t5"] = (params, tcfg, SeededTokenizer(tcfg.vocab_size, 1, seed + 2))
+
+
+def sd3_pipeline_forward(torch, pipe, embeds, pooled, cond_pooled, control_lat, seed,
+                         replay=False):
+    """One forward of the pipeline's tree at its shapes, at the first step of
+    a 28-step schedule: the CFG forward on the [zero negatives; prompt]
+    pair, or with ``replay`` the cfg_cache replay step (the positive half
+    alone, replaying that CFG forward's control outputs)."""
+    from unigen_tpu_torch.models.unigen_sd3 import unigen_sd3_forward
+    from unigen_tpu_torch.pipelines import scheduling
+    dev, dt = pipe.device, pipe.dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = embeds.shape[0]
+    lat = torch.randn((b,) + tuple(control_lat.shape[1:]), generator=g, device=dev, dtype=dt)
+    _, ts = scheduling.inference_sigmas(pipe.scheduler, SD3_PIPE_STEPS)
+    t = torch.full((2 * b,), float(ts[0]), dtype=dt, device=dev)
+    args = (torch.cat([lat, lat]), torch.cat([control_lat, control_lat]),
+            torch.cat([torch.zeros_like(embeds), embeds]),
+            torch.cat([torch.zeros_like(pooled), pooled]),
+            torch.cat([cond_pooled, cond_pooled]), t)
+    if not replay:
+        return lambda: unigen_sd3_forward(pipe.params, pipe.cfg, *args)[0]
+    res = unigen_sd3_forward(pipe.params, pipe.cfg, *args, return_control_residuals=True)[2]
+    res = res["control_residuals"][:, b:]
+    return lambda: unigen_sd3_forward(pipe.params, pipe.cfg, lat, control_lat, embeds, pooled,
+                                      cond_pooled, t[:b], control_residuals=res)[0]
+
+
+def composed_balanced_sd3(mode, lat, fwd, fwd_pos, sigmas, num_steps, guidance):
+    """SD3's "balanced" profile (hybrid c=8, m=2, bf16 residuals, order 0)
+    written out as forward calls: a full forward capturing the control
+    outputs every 8th step, a base forward replaying them on the other
+    even steps, the last prediction held on the odd ones."""
+    from unigen_tpu_torch.pipelines import scheduling
+    b = lat.shape[0]
+
+    def guided(raw):
+        return raw[:b] + guidance * (raw[b:] - raw[:b])
+    res = pred = None
+    for i in range(num_steps):
+        if i % 8 == 0:
+            raw, outs = fwd(lat, i, return_control_residuals=True,
+                            control_residuals_bits=16)
+            pred, res = guided(raw), outs["control_residuals"]
+        elif i % 2 == 0:
+            pred = guided(fwd(lat, i, control_residuals=res)[0])
+        lat = scheduling.euler_step(lat, pred, sigmas[i], sigmas[i + 1])
+    return lat
+
+
+def sd3_load_check(torch, root, pipe, dev, min_dim=512):
+    """The streaming-quantized trees of ``pipe`` (W4A8 transformer, W4A8 text
+    towers; donated, one block of a stack at a time) against the same walk
+    without donation (each linear in one call, into a new tree, at
+    ``min_dim``, the loader's gate) of the same checkpoint loaded with
+    quantize=None: -> (leaves compared, leaves that differ). It sees the
+    loader's per-subtree choice of bits, gate and skip list, and any bit
+    that the in-place, per-block path changes; the rounding of the scales
+    is held against the JAX loader by the CPU tests."""
+    from unigen_tpu_torch.ops import quant
+    from unigen_tpu_torch.pipelines.loading import load_sd3_pipeline
+    raw = load_sd3_pipeline(str(root), adapter_dir=str(root / "adapter"),
+                            dtype=torch.bfloat16, device=dev)
+    whole = functools.partial(quant.quantize_tree_streaming, donate=False)
+    pairs = [(pipe.params["base"], whole(raw.params["base"], bits=4, min_dim=min_dim)),
+             (pipe.params["control"], whole(raw.params["control"], bits=8,
+                                            min_dim=min_dim))]
+    for key in ("clip_l", "clip_g", "t5"):
+        pairs.append((pipe.text_encoders[key][0], quant.quantize_text_tower(
+            raw.text_encoders[key][0], bits=4, donate=False)))
+    compared, differ = 0, []
+    for got, want in pairs:
+        n, d = trees_equal(torch, got, want)
+        compared, differ = compared + n, differ + d
+    del raw
+    torch.cuda.empty_cache()
+    return compared, differ
+
+
+def phase_sd3_pipeline(torch, dev, seed, root):
+    """8c. A full-size random SD3.5-medium checkpoint directory written to
+    ``root`` (the diffusers layout, with a UniGen adapter), loaded by
+    load_sd3_pipeline as a W4A8 tree (int4 base, int8 adapter) with W4A8
+    text towers and seeded stub tokenizers; then 4 b=1 requests at 512^2,
+    28 steps, CFG 7 in each mode of SD3_PIPE_MODES through
+    MicroBatchServer(batch_size=2), and the load, path and composition
+    checks. Every check stops the run. -> launches of the exact mode."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.models.clip_text import clip_encode
+    from unigen_tpu_torch.models.t5_text import t5_encode
+    from unigen_tpu_torch.models.text_encoder import tokenize
+    from unigen_tpu_torch.ops import quant
+    from unigen_tpu_torch.pipelines import caching
+    from unigen_tpu_torch.pipelines.caching import resolve_cache_mode
+    from unigen_tpu_torch.pipelines.loading import load_sd3_pipeline
+    from unigen_tpu_torch.serving import MicroBatchServer
+    from unigen_tpu_torch.utils import param_bytes
+
+    cfg = presets.sd35_medium()
+    gc.collect()             # earlier phases' tensors that only reference cycles hold
+    torch.cuda.synchronize()
+    phase_start = torch.cuda.memory_allocated()
+    t0 = time.time()
+    written = write_sd3_checkpoint(torch, dev, root, cfg, seed)
+    write_s = time.time() - t0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with load_timer(torch, stats):
+        pipe = load_sd3_pipeline(str(root), adapter_dir=str(root / "adapter"),
+                                 dtype=torch.bfloat16, quantize="w4a8", quantize_text="w4a8",
+                                 device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    set_stub_tokenizers(pipe, seed)
+    pipe._prompt_cache = caching.PromptLRU(64)
+    te = pipe.text_encoders
+    emit(dict(phase="sd3_load", root=str(root), written_bytes=written, write_s=write_s,
+              load_s=load_s, phase_start_bytes=phase_start, **stats,
+              transformer_bytes=param_bytes(pipe.params),
+              text_bytes={k: param_bytes(v[0]) for k, v in te.items()},
+              vae_bytes=param_bytes(pipe.vae_params)))
+    t0 = time.time()
+    compared, differ = sd3_load_check(torch, root, pipe, dev)
+    emit(dict(phase="sd3_load_check",
+              reference="quantize_tree_streaming(donate=False) of the quantize=None load",
+              leaves=compared, differ=differ, s=time.time() - t0))
+    if differ or not compared:
+        raise SystemExit(f"sd3_load_check: the loaded and the undonated quantization differ "
+                         f"at {differ[:8]}")
+
+    res, steps, guidance = PIPE_RES, SD3_PIPE_STEPS, SD3_PIPE_GUIDANCE
+    host = torch.Generator().manual_seed(seed + 11)
+    pixels = [torch.rand(1, 3, res, res, generator=host) * 2 - 1 for _ in range(N_REQUESTS)]
+    s_img = (res // pipe.vae_cfg.downscale // cfg.sd3.patch_size) ** 2
+    neg = pipe.encode_prompt(SD3_NEGATIVE)
+    cond = pipe.encode_condition_prompt("depth")
+    per_prompt = text_launches(*(te[k][0] for k in ("clip_l", "clip_g", "t5")))
+    # warm-up: a b=2 generate on the control cache with cfg_cache runs the
+    # full and the half-batch replay forwards and the VAE
+    e, p = pipe.encode_prompt(["warm-up a", "warm-up b"])
+    pipe.generate(prompt_embeds=e, pooled=p, cond_pooled=torch.cat([cond, cond]),
+                  neg_embeds=torch.cat([neg[0], neg[0]]), neg_pooled=torch.cat([neg[1], neg[1]]),
+                  control_pixels=torch.cat(pixels[:BATCH]), height=res, width=res,
+                  num_inference_steps=2, guidance_scale=guidance,
+                  control_cache_interval=2, cfg_cache=True)
+    torch.cuda.synchronize()
+
+    lines = {}
+    for run_no, (name, knobs) in itertools.product(range(1, SD3_PIPE_RUNS + 1), SD3_PIPE_MODES):
+        mode = resolve_cache_mode(steps, family="sd3", **knobs)
+        refreshes, stages, held = [], {}, []
+
+        def run(x, knobs=knobs):
+            out = pipe.generate(**x, height=res, width=res, num_inference_steps=steps,
+                                guidance_scale=guidance, **knobs)
+            refreshes.append((x["pooled"].shape[0], pipe.last_cache_refreshes))
+            return out
+
+        srv = MicroBatchServer(run, batch_size=BATCH, max_wait_ms=50)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        misses = pipe._prompt_cache.misses
+        try:
+            with stage_timer(torch, pipe, stages), residual_probe(pipe, held):
+                t0 = time.perf_counter()
+                enc_start = torch.cuda.Event(enable_timing=True)
+                enc_end = torch.cuda.Event(enable_timing=True)
+                enc_start.record()
+                reqs = []
+                for r in range(N_REQUESTS):
+                    e, p = pipe.encode_prompt(f"{name} run {run_no} request {r}: "
+                                              "a photo of a red cube")
+                    ne, npool = pipe.encode_prompt(SD3_NEGATIVE)
+                    reqs.append(dict(prompt_embeds=e, pooled=p, neg_embeds=ne,
+                                     neg_pooled=npool,
+                                     cond_pooled=pipe.encode_condition_prompt("depth"),
+                                     control_pixels=pixels[r]))
+                enc_end.record()
+                outs = [f.result(timeout=900) for f in [srv.submit(**r) for r in reqs]]
+                wall = time.perf_counter() - t0
+        finally:
+            srv.close()
+        launches = nonzero(launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        ms = stage_ms(torch, stages)
+        ms["prompt_encoding"] = enc_start.elapsed_time(enc_end)
+        kinds = [(b, *step_kinds(mode, ref, steps)) for b, ref in refreshes]
+        encodes = pipe._prompt_cache.misses - misses
+        want = add_counts((1, expected_sd3_pipeline_launches(pipe.params, cfg,
+                                                             [k[:3] for k in kinds])),
+                          (encodes, per_prompt))
+        cached = mode.hybrid or not (mode.exact or mode.model_cache)
+        line = dict(phase="sd3_pipeline", mode=name, run=run_no, knobs=knobs,
+                    requests=N_REQUESTS, batches=srv.stats.batches, steps=steps,
+                    guidance=guidance, resolution=res, wall_ms=wall * 1e3,
+                    images_per_s=N_REQUESTS / wall, stage_ms=ms,
+                    steps_per_batch=[dict(batch=b, n_full=f, n_base=n, n_skip=s)
+                                     for b, f, n, s in kinds],
+                    residual_cache_bytes=max(held, default=0),
+                    residual_cache_bytes_formula=(
+                        sd3_residual_cache_bytes(cfg, BATCH, s_img, mode.bits)
+                        if cached else 0),
+                    residual_bits=mode.bits if cached else None, prompt_encodes=encodes,
+                    phase_start_bytes=phase_start, resident_bytes=resident,
+                    peak_bytes=peak, peak_above_phase_start_bytes=peak - phase_start,
+                    peak_above_resident_bytes=peak - resident,
+                    launches=launches, expected_launches=want,
+                    out_shape=list(outs[0].shape))
+        emit(line)
+        lines.setdefault(name, []).append(line)
+        for o in outs:
+            if o.dtype != torch.uint8 or tuple(o.shape) != (1, res, res, 3):
+                raise SystemExit(f"sd3_pipeline {name}: bad output {o.dtype} {tuple(o.shape)}")
+        if launches != want or srv.stats.batches != N_REQUESTS // BATCH \
+                or encodes != N_REQUESTS:
+            raise SystemExit(f"sd3_pipeline {name}: launches {launches} != expected {want} "
+                             f"({srv.stats.batches} batches, {encodes} encodes, "
+                             f"steps {kinds})")
+        if bool(held) != cached:
+            raise SystemExit(f"sd3_pipeline {name}: {len(held)} residual captures in a "
+                             f"{'cached' if cached else 'cache-free'} mode")
+
+    # path check: every kernel call of one CFG forward, one T5 and one CLIP-G
+    # encode against its plain version, with the W4A8 shapes they ran
+    e, p = pipe.encode_prompt("a photo of a red cube")
+    control_lat = pipe.encode_control(pixels[0].to(dev))
+    fwd = sd3_pipeline_forward(torch, pipe, e, p, cond, control_lat, seed)
+    ids_t5 = tokenize(te["t5"][2], ["a photo of a red cube"], 256)
+    ids_g = tokenize(te["clip_g"][2], ["a photo of a red cube"], 77)
+    checks, path = {}, {}
+    with torch.no_grad():
+        for what, call, want in (
+                ("cfg_forward", fwd, sd3_forward_launches_quantized(pipe.params, cfg, 2)),
+                ("t5_encode", lambda: t5_encode(te["t5"][0], te["t5"][1], ids_t5),
+                 text_launches(te["t5"][0])),
+                ("clip_g_encode", lambda: clip_encode(te["clip_g"][0], te["clip_g"][1],
+                                                      ids_g)[2],
+                 text_launches(te["clip_g"][0]))):
+            checks = {}
+            with shadowed_kernels(torch, checks):
+                call()
+            summary = path_check_summary(checks)
+            path[what] = dict(summary, expected_calls=nonzero(want),
+                              w4a8_shapes=shape_counts(checks.get("w4a8_matmul", [])))
+            calls = {n: c["calls"] for n, c in summary.items()}
+            if any(c["disagree"] for c in summary.values()) or calls != {
+                    n: v for n, v in nonzero(want).items() if n != "w4a8_general"}:
+                raise SystemExit(f"sd3_pipeline_path_check {what}: {summary} "
+                                 f"(expected {want})")
+    emit(dict(phase="sd3_pipeline_path_check", **path))
+
+    # profile: device time by group of a CFG forward at the served batch (two
+    # requests) and of the cfg_cache replay step on its positive half
+    e2, p2 = pipe.encode_prompt(["profiled prompt a", "profiled prompt b"])
+    with torch.no_grad():
+        for replay in (False, True):
+            device_breakdown(torch, sd3_pipeline_forward(
+                torch, pipe, e2, p2, torch.cat([cond, cond]),
+                torch.cat([control_lat, control_lat]), seed, replay=replay),
+                phase="sd3_pipeline_profile", forward="cfg_cache replay" if replay else "cfg",
+                forward_batch=2 if replay else 4)
+
+    # composition: a "balanced" generate against its forward calls written out
+    one = dict(prompt_embeds=e, pooled=p, cond_pooled=cond, neg_embeds=neg[0],
+               neg_pooled=neg[1], control_pixels=pixels[0], height=res, width=res,
+               num_inference_steps=steps, guidance_scale=guidance, seed=seed)
+    reset_launch_counts()
+    balanced = pipe.generate(**one, quality_profile="balanced")
+    gen_launches = nonzero(launch_counts())
+    refreshes = pipe.last_cache_refreshes
+    pipe.denoise = composed_balanced_sd3
+    reset_launch_counts()
+    try:
+        by_hand = pipe.generate(**one)
+    finally:
+        del pipe.denoise
+    hand_launches = nonzero(launch_counts())
+    want = expected_sd3_pipeline_launches(pipe.params, cfg, [(1, *refreshes)])
+    emit(dict(phase="sd3_pipeline_composition", mode="balanced",
+              same_bits=torch.equal(balanced, by_hand), refreshes=list(refreshes),
+              launches=gen_launches, composition_launches=hand_launches,
+              expected_launches=want))
+    if not torch.equal(balanced, by_hand) or not gen_launches == hand_launches == want:
+        raise SystemExit("sd3_pipeline: balanced generate differs from its composition")
+    del pipe
+    torch.cuda.empty_cache()
+    return lines["exact"][0]["launches"]
+
+
+def link_component(src, dst, config):
+    """A component directory whose weight files are symlinks to ``src``'s,
+    with its own config.json."""
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in src.iterdir():
+        if f.suffix == ".safetensors":
+            (dst / f.name).symlink_to(f.resolve())
+    (dst / "config.json").write_text(json.dumps(config))
+
+
+def write_flux_checkpoint(torch, dev, root, cfg, seed, sd3_root):
+    """A random FLUX.1 directory of ``cfg``'s sizes: the transformer (bf16,
+    two shards) and the reference's adapter in its ``{module}_weights_{idx}
+    .bin`` layout drawn on ``dev`` from ``seed``; the VAE, CLIP-L and T5
+    weights linked from the SD3 directory ``sd3_root`` with FLUX's configs
+    (the VAE's FLUX scaling; CLIP-L keeps its projection, which the loader
+    reads where the file holds it). -> bytes per written component."""
+    bb = cfg.flux
+    shapes = flux_transformer_shapes(bb)
+    adapter = flux_adapter_shapes(cfg)
+    # the files and the serving-tree cache, well under half their size
+    require_disk(root, checkpoint_bytes([(shapes, 2), (adapter, 2)]) * 3 // 2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    written = {"transformer": write_component(
+        torch, root / "transformer", shapes, torch.bfloat16, gen, dev,
+        dict(_class_name="FluxTransformer2DModel", in_channels=bb.in_channels,
+             num_layers=bb.num_layers, num_single_layers=bb.num_single_layers,
+             attention_head_dim=bb.attention_head_dim,
+             num_attention_heads=bb.num_attention_heads,
+             joint_attention_dim=bb.joint_attention_dim,
+             pooled_projection_dim=bb.pooled_projection_dim,
+             guidance_embeds=bb.guidance_embeds, axes_dims_rope=list(bb.axes_dims_rope)),
+        shards=2, stem="diffusion_pytorch_model")}
+    written["adapter"] = write_reference_adapter_bins(torch, root / "adapter", adapter,
+                                                      torch.bfloat16, gen, dev)
+    text = sd3_text_configs()
+    import dataclasses
+    flux_vae = dataclasses.replace(sd3_vae_config(), scaling_factor=0.3611, shift_factor=0.1159)
+    link_component(sd3_root / "vae", root / "vae", vae_config_json(flux_vae))
+    link_component(sd3_root / "text_encoder", root / "text_encoder", text["text_encoder"][1])
+    link_component(sd3_root / "text_encoder_3", root / "text_encoder_2",
+                   text["text_encoder_3"][1])
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "config.json").write_text(json.dumps(
+        {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 1.0,
+         "use_dynamic_shifting": False}))
+    return written
+
+
+def trees_equal(torch, a, b):
+    """-> (leaves compared, paths whose leaves differ in dtype, shape or
+    bits)."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    want = dict(tree_leaves_with_path(b))
+    got = dict(tree_leaves_with_path(a))
+    differ = sorted(".".join(p) for p in set(want) ^ set(got))
+    differ += [".".join(p) for p, t in got.items() if p in want and (
+        t.dtype != want[p].dtype or not torch.equal(t, want[p]))]
+    return len(got), differ
+
+
+def phase_load_flux(torch, dev, seed, root, sd3_root):
+    """4e. load_flux_pipeline at full FLUX width and a reduced depth
+    (LOAD_FLUX_DEPTH): a random transformer directory and the reference's
+    .bin adapter, 8c's VAE, CLIP-L and T5 files; loaded twice as W4A8 with
+    W4A8 text towers through a serving-tree cache (the cold start, then the
+    restart from the cache, which must give the same tree bit for bit);
+    two requests through the loaded pipeline's __call__ with stub
+    tokenizers; every kernel call of one forward and one T5 encode at
+    M = 512 against its plain version."""
+    import dataclasses
+
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.models.t5_text import t5_encode
+    from unigen_tpu_torch.models.text_encoder import tokenize
+    from unigen_tpu_torch.pipelines import caching
+    from unigen_tpu_torch.pipelines.loading import load_flux_pipeline
+    from unigen_tpu_torch.utils import param_bytes
+
+    full = presets.flux_full()
+    n_double, n_single = LOAD_FLUX_DEPTH
+    cfg = dataclasses.replace(full, flux=dataclasses.replace(
+        full.flux, num_layers=n_double, num_single_layers=n_single))
+    t0 = time.time()
+    written = write_flux_checkpoint(torch, dev, root, cfg, seed, sd3_root)
+    write_s = time.time() - t0
+    cache = root / "serving_cache"
+    loads = []
+    for start in ("cold", "restart_from_cache"):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with load_timer(torch, stats):
+            pipe = load_flux_pipeline(str(root), adapter_dir=str(root / "adapter"),
+                                      quantize="w4a8", quantize_text="w4a8",
+                                      serving_cache=str(cache), device=dev)
+        torch.cuda.synchronize()
+        loads.append((pipe, dict(start=start, s=time.time() - t0, **stats)))
+    (first, cold), (pipe, warm) = loads
+    compared, differ = trees_equal(torch, pipe.params, first.params)
+    cache_bytes = sum(f.stat().st_size for f in cache.iterdir())
+    del first, loads
+    torch.cuda.empty_cache()
+    emit(dict(phase="load_flux", depth=list(LOAD_FLUX_DEPTH), written_bytes=written,
+              write_s=write_s, cold=cold, restart=warm, serving_cache_bytes=cache_bytes,
+              transformer_bytes=param_bytes(pipe.params),
+              text_bytes={"clip": param_bytes(pipe.clip_params),
+                          "t5": param_bytes(pipe.t5_params)},
+              restart_same_tree=not differ, leaves=compared))
+    if differ or not compared:
+        raise SystemExit(f"load_flux: the serving-cache restart differs from the cold "
+                         f"load at {differ[:8]}")
+
+    pipe.tokenizer = SeededTokenizer(pipe.clip_cfg.vocab_size, pipe.clip_cfg.vocab_size - 1,
+                                     seed)
+    pipe.tokenizer_2 = SeededTokenizer(pipe.t5_cfg.vocab_size, 1, seed + 1)
+    pipe._prompt_cache = caching.PromptLRU(64)
+    host = torch.Generator().manual_seed(seed + 13)
+    pixels = [torch.rand(1, 3, PIPE_RES, PIPE_RES, generator=host) * 2 - 1
+              for _ in range(3)]
+    kw = dict(height=PIPE_RES, width=PIPE_RES, num_inference_steps=STEPS)
+    pipe("warm-up", "canny", pixels[2], **kw)
+    torch.cuda.synchronize()
+    per_prompt = text_launches(pipe.clip_params, pipe.t5_params)
+    stages = {}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    misses = pipe._prompt_cache.misses
+    with stage_timer(torch, pipe, stages):
+        t0 = time.perf_counter()
+        outs = [pipe(f"loaded request {r}: a photo of a red cube", "canny", pixels[r], **kw)
+                for r in range(2)]
+        wall = time.perf_counter() - t0
+    launches = nonzero(launch_counts())
+    encodes = pipe._prompt_cache.misses - misses
+    want = add_counts((1, expected_pipeline_launches(pipe.params, cfg, [(1, STEPS, 0)] * 2)),
+                      (encodes, per_prompt))
+    line = dict(phase="load_flux_requests", requests=2, steps=STEPS, resolution=PIPE_RES,
+                wall_ms=wall * 1e3, images_per_s=2 / wall, stage_ms=stage_ms(torch, stages),
+                prompt_encodes=encodes, peak_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, expected_launches=want, out_shape=list(outs[0].shape))
+    emit(line)
+    if launches != want or encodes != 2 or any(
+            o.dtype != torch.uint8 or tuple(o.shape) != (1, PIPE_RES, PIPE_RES, 3)
+            for o in outs):
+        raise SystemExit(f"load_flux: launches {launches} != expected {want} or bad "
+                         f"outputs ({encodes} encodes)")
+
+    path = {}
+    ids = tokenize(pipe.tokenizer_2, ["a photo of a red cube"], 512)
+    e, p = pipe.encode_prompt("a photo of a red cube")
+    c = pipe.encode_condition_prompt("canny")
+    for what, call, want in (
+            ("forward", lambda: pipe.generate(prompt_embeds=e, pooled=p, cond_pooled=c,
+                                              control_pixels=pixels[0], height=PIPE_RES,
+                                              width=PIPE_RES, num_inference_steps=1),
+             expected_launches(pipe.params, cfg, 1)),
+            ("t5_encode", lambda: t5_encode(pipe.t5_params, pipe.t5_cfg, ids),
+             text_launches(pipe.t5_params))):
+        checks = {}
+        with torch.no_grad(), shadowed_kernels(torch, checks):
+            call()
+        summary = path_check_summary(checks)
+        path[what] = dict(summary, w4a8_shapes=shape_counts(checks.get("w4a8_matmul", [])))
+        calls = {n: c["calls"] for n, c in summary.items()}
+        expected = {n: v for n, v in nonzero(want).items()
+                    if n in ("flash_attention_rope", "flash_attention", "w4a8_matmul",
+                             "quantize_act")}
+        if any(c["disagree"] for c in summary.values()) or calls != expected:
+            raise SystemExit(f"load_flux_path_check {what}: {summary} (expected {expected})")
+    emit(dict(phase="load_flux_path_check", **path))
+    del pipe
+    torch.cuda.empty_cache()
+    return line
+
+
+def shape_counts(records):
+    """{"MxKxN": calls} of the W4A8 path-check records."""
+    out = {}
+    for r in records:
+        key = "x".join(map(str, r["shape"]))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                      "port on one NVIDIA card")
@@ -3191,7 +4390,23 @@ def main() -> int:
     done("9 sd3_1024")
     # 8b. the StepServer on the same SD3 tree, per-sample routing
     sd3_serve = phase_stepserve_sd3(torch, dev, model.params, args.seed)
+    del model
+    torch.cuda.empty_cache()
     done("8b stepserve_sd3")
+
+    # 8c. the SD3 pipeline loaded from a full-size checkpoint directory;
+    # 4e. the FLUX loader on a directory sharing its VAE and text files.
+    # The directories are removed whatever happens.
+    import shutil
+    shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+    try:
+        sd3_pipeline = phase_sd3_pipeline(torch, dev, args.seed, CHECKPOINTS / "sd35_medium")
+        done("8c sd3_pipeline")
+        load_flux = phase_load_flux(torch, dev, args.seed, CHECKPOINTS / "flux",
+                                    CHECKPOINTS / "sd35_medium")
+        done("4e load_flux")
+    finally:
+        shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
     # 10. kernels line: the dominant main-path shape of each kernel; launches
     # from the main path that runs it (training for the FLUX kernels, with
@@ -3245,6 +4460,10 @@ def main() -> int:
             entry["stepserve_sd3_launches"] = sd3_serve["exact"]["launches"][name]
         if name == "flash_attention":
             entry["train_blocks_launches"] = blocks[name]
+        if name in sd3_pipeline:
+            entry["sd3_pipeline_launches"] = sd3_pipeline[name]
+        if name in load_flux["launches"]:
+            entry["load_flux_launches"] = load_flux["launches"][name]
         if name in ("flash_attention_rope",) + BWD_NAMES:
             entry.update(rotation_source="unigen_tpu_torch/csrc/flash_attention_rope.cu",
                          rotation_launches=main_path["rope_rotate"])

@@ -385,3 +385,45 @@ def test_remat_step_kernel_calls_match_chip_smoke_count(monkeypatch, control):
     assert want["rope_rotate"] == calls["fwd"] + calls["bwd"]
     assert want["flash_attention_bwd_dq"] == want["flash_attention_bwd_dkv"]
     assert (want["flash_attention"] > 0) == (control == "blocks")
+
+
+def test_discarded_context_leaves_decay_as_optax():
+    """The context branch of the control double blocks and of the shared
+    expert's weave_text (``ff_context`` and the context's output projection)
+    is not run: autograd gives those trainable leaves no gradient, which the
+    step treats as zero, so AdamW's weight decay alone moves them, as it
+    does under optax, where JAX's gradients are zero. One update of every
+    such leaf against JAX's."""
+    jc, tc = _configs()
+    kw = dict(learning_rate=1e-2, lr_scheduler="constant", gradient_accumulation_steps=1,
+              remat="none", adam_weight_decay=0.1, max_grad_norm=1.0)
+    jt, tt = j_config.TrainConfig(**kw), t_config.TrainConfig(**kw)
+    jp = _jax_params(jc)
+    jbatch, tbatch = _batch(np.random.default_rng(2))
+    key = jax.random.PRNGKey(300)
+    state = j_ts.init_train_state(jp["control"], jt)
+    j_state, _ = jax.jit(j_ts.make_train_step(jc, jt))(state, jp["base"], jbatch, key)
+    t_state = t_ts.init_train_state(to_torch_tree(jp["control"]), tt)
+    t_state, _ = t_ts.make_train_step(tc, tt)(
+        t_state, to_torch_tree(jp["base"]), tbatch,
+        draws=_jax_draws(key, jbatch["latents"], tt.weighting_scheme))
+    before = to_torch_tree(jp["control"])
+    want = to_torch_tree(j_state.control)
+    checked = 0
+    for root in (("double_blocks",), ("shared_expert", "weave_text")):
+        t_node, j_node, b_node = t_state.control, want, before
+        for k in root:
+            t_node, j_node, b_node = t_node[k], j_node[k], b_node[k]
+        for branch in ("ff_context", "attn"):
+            for name, leaves in t_node[branch].items():
+                if branch == "attn" and name != "to_add_out":
+                    continue
+                for leaf, t in leaves.items():
+                    old, ref = b_node[branch][name][leaf], j_node[branch][name][leaf]
+                    decayed = old - 1e-2 * 0.1 * old
+                    np.testing.assert_allclose(t.numpy(), ref.numpy(), rtol=1e-6, atol=1e-9)
+                    np.testing.assert_allclose(t.numpy(), decayed.numpy(), rtol=1e-6,
+                                               atol=1e-9)
+                    assert not torch.equal(t, old)
+                    checked += 1
+    assert checked == 12

@@ -157,6 +157,32 @@ class TrainConfig:
     lora_adapter_name: str = "default"
 
 
+def control_overrides_from_yaml(path: Optional[str]) -> dict:
+    """The reference's control-config file (``config/unigen.yaml``:
+    ``params.control_params.*``, plain YAML or JSON) -> ControlConfig
+    override kwargs; the MoE keys (``expert_num_each_condition`` and the
+    others) fold into a ``moe=MoEConfig(...)`` override, and an unknown key
+    raises. {} for a falsy path. PyYAML is imported here, on use."""
+    if not path:
+        return {}
+    import yaml
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    params = (doc or {}).get("params", doc) or {}
+    cp = dict(params.get("control_params", params) or {})
+    moe_keys = {k: cp.pop(k) for k in list(cp)
+                if k in ("expert_num_each_condition", "expert_num", "top_k",
+                         "capacity_factor", "aux_loss_weight")}
+    valid = {f.name for f in dataclasses.fields(ControlConfig)}
+    unknown = set(cp) - valid
+    if unknown:
+        raise ValueError(f"control config {path}: unknown control_params keys "
+                         f"{sorted(unknown)}; valid: {sorted(valid)}")
+    if moe_keys:
+        cp["moe"] = MoEConfig(**moe_keys)
+    return cp
+
+
 def tiny_flux_config(**overrides) -> FluxBackboneConfig:
     """A miniature Flux config for tests (same topology, tiny dims)."""
     base = dict(

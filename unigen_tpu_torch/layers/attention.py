@@ -56,11 +56,14 @@ def init_joint_attention(dim: int, heads: int, head_dim: int, *,
 def joint_attention(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor] = None,
                     *, heads: int, rope: Optional[Tuple] = None,
                     context_first: bool = True,
-                    condition_kv_states: Optional[torch.Tensor] = None
+                    condition_kv_states: Optional[torch.Tensor] = None,
+                    context_out: bool = True
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (x_out, ctx_out); ctx_out is None without a context stream or
-    for a context_pre_only module. rope: (cos, sin) over the concatenated
-    sequence in concat order."""
+    """Returns (x_out, ctx_out); ctx_out is None without a context stream,
+    for a context_pre_only module, or with ``context_out=False`` (the
+    caller discards it: its output projection is skipped, while the
+    context's q/k/v still enter the attention). rope: (cos, sin) over the
+    concatenated sequence in concat order."""
     sx = x.shape[1]
     q = split_heads(linear(p["to_q"], x), heads)
     k = split_heads(linear(p["to_k"], x), heads)
@@ -109,5 +112,6 @@ def joint_attention(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor] = None
         x_out, ctx_out = out[:, :sx], out[:, sx:]
     if "to_out" in p:
         x_out = linear(p["to_out"], x_out)
-    ctx_out = linear(p["to_add_out"], ctx_out) if "to_add_out" in p else None
-    return x_out, ctx_out
+    if not context_out or "to_add_out" not in p:
+        return x_out, None
+    return x_out, linear(p["to_add_out"], ctx_out)

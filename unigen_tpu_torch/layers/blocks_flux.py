@@ -32,16 +32,23 @@ def init_flux_double_block(dim: int, heads: int, head_dim: int, **kw) -> dict:
 
 def flux_double_block(p: dict, x: torch.Tensor, ctx: torch.Tensor,
                       temb: torch.Tensor, rope: Optional[Tuple] = None, *,
-                      heads: int, context_first: bool = True
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (ctx_out, x_out), the diffusers FluxTransformerBlock order."""
+                      heads: int, context_first: bool = True,
+                      context_out: bool = True
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Returns (ctx_out, x_out), the diffusers FluxTransformerBlock order.
+    ``context_out=False`` returns (None, x_out) and skips every operation
+    whose only consumer is ctx_out (the context's attention output
+    projection, gates, norm and ``ff_context``); x_out keeps its bits."""
     nx, g_msa, s_mlp, sc_mlp, g_mlp = adaln_zero(p["norm1"], x, temb)
     nc, cg_msa, cs_mlp, csc_mlp, cg_mlp = adaln_zero(p["norm1_context"], ctx, temb)
 
     attn_x, attn_c = joint_attention(p["attn"], nx, nc, heads=heads, rope=rope,
-                                     context_first=context_first)
+                                     context_first=context_first,
+                                     context_out=context_out)
     x = x + g_msa * attn_x
     x = x + g_mlp * mlp(p["ff"], modulate(layer_norm(x), s_mlp, sc_mlp))
+    if not context_out:
+        return None, x
 
     ctx = ctx + cg_msa * attn_c
     ctx = ctx + cg_mlp * mlp(p["ff_context"], modulate(layer_norm(ctx), cs_mlp, csc_mlp))

@@ -46,10 +46,14 @@ def init_sd3_joint_block(dim: int, heads: int, head_dim: int, *,
 def sd3_joint_block(p: dict, x: torch.Tensor, ctx: torch.Tensor,
                     temb: torch.Tensor, rope: Optional[Tuple] = None, *,
                     heads: int,
-                    condition_kv_states: Optional[torch.Tensor] = None
+                    condition_kv_states: Optional[torch.Tensor] = None,
+                    context_out: bool = True
                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Returns (ctx_out, x_out); ctx_out is None for a context_pre_only
-    block. ``condition_kv_states`` feeds the KV-append condition attention
+    block, and with ``context_out=False``, which skips every operation whose
+    only consumer is ctx_out (the context's attention output projection,
+    gates, norm and ``ff_context``); x_out keeps its bits.
+    ``condition_kv_states`` feeds the KV-append condition attention
     (cn2base_method="CrossAttn")."""
     dual = "attn2" in p
     if dual:
@@ -65,14 +69,15 @@ def sd3_joint_block(p: dict, x: torch.Tensor, ctx: torch.Tensor,
 
     attn_x, attn_c = joint_attention(p["attn"], nx, nc, heads=heads, rope=rope,
                                      context_first=False,
-                                     condition_kv_states=condition_kv_states)
+                                     condition_kv_states=condition_kv_states,
+                                     context_out=context_out)
     x = x + g_msa * attn_x
     if dual:
         attn_x2, _ = joint_attention(p["attn2"], nx2, None, heads=heads, rope=rope)
         x = x + g_msa2 * attn_x2
     x = x + g_mlp * mlp(p["ff"], modulate(layer_norm(x), s_mlp, sc_mlp))
 
-    if context_pre_only:
+    if context_pre_only or not context_out:
         return None, x
     ctx = ctx + cg_msa * attn_c
     ctx = ctx + cg_mlp * mlp(p["ff_context"], modulate(layer_norm(ctx), cs_mlp, csc_mlp))

@@ -1,9 +1,12 @@
 """CLIP text encoder, the ViT-L/14 text tower (port of
 ``unigen_tpu/models/clip_text.py``): token + learned position embeddings,
-pre-LN transformer layers with causal attention and quick-GELU MLPs, a
+pre-LN transformer layers with causal attention and GELU-family MLPs, a
 final LayerNorm, and the pooled output at the EOS token (projected when a
-``text_projection`` exists). Its attention is the plain ``sdpa_xla`` with
-the causal mask: the text towers reach no kernel.
+``text_projection`` exists). The MLP's activation is the config's
+``hidden_act``: quick-GELU (CLIP-L, the JAX package's only one) or the
+exact GELU (CLIP-G, SD3's ``text_encoder_2``). Its attention is the plain
+``sdpa_xla`` with the causal mask: the text towers reach no attention
+kernel (their quantized linears reach W4A8).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from unigen_tpu_torch.layers.core import init_linear, layer_norm, linear
 from unigen_tpu_torch.ops.attention import merge_heads, sdpa_xla, split_heads
@@ -28,6 +32,7 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     projection_dim: Optional[int] = None   # set for CLIPTextModelWithProjection
     eos_token_id: int = 49407
+    hidden_act: str = "quick_gelu"         # or "gelu" (exact, erf)
 
 
 def tiny_clip_config(**kw) -> CLIPTextConfig:
@@ -40,6 +45,9 @@ def tiny_clip_config(**kw) -> CLIPTextConfig:
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 def _layer_norm_params(d, device, dtype):
@@ -93,6 +101,10 @@ def clip_encode(params: dict, cfg: CLIPTextConfig, input_ids
     x = emb[ids] + params["position_embedding"][None, :t]
     causal = torch.tril(torch.ones(t, t, dtype=torch.bool, device=emb.device))[None, None]
     heads = cfg.num_heads
+    if cfg.hidden_act not in ACTIVATIONS:
+        raise ValueError(f"CLIP hidden_act {cfg.hidden_act!r}: expected one of "
+                         f"{sorted(ACTIVATIONS)}")
+    act = ACTIVATIONS[cfg.hidden_act]
     penultimate = x
     for i in range(cfg.num_layers):
         lp = index_params(params["layers"], i)
@@ -100,7 +112,7 @@ def clip_encode(params: dict, cfg: CLIPTextConfig, input_ids
         q, k, v = (split_heads(linear(lp[n], h), heads) for n in ("q", "k", "v"))
         x = x + linear(lp["o"], merge_heads(sdpa_xla(q, k, v, causal)))
         h = _ln(lp["ln2"], x)
-        x = x + linear(lp["fc2"], quick_gelu(linear(lp["fc1"], h)))
+        x = x + linear(lp["fc2"], act(linear(lp["fc1"], h)))
         if i == cfg.num_layers - 2:
             penultimate = x
     if cfg.num_layers < 2:

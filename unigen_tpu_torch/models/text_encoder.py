@@ -1,7 +1,9 @@
-"""Prompt encoding of the FLUX stack (port of the FLUX part of
-``unigen_tpu/models/text_encoder.py``): the CLIP-L pooled embedding alone
-(the condition task name's embedding) and the full FLUX prompt encoding
-(T5 sequence embeddings, CLIP pooled, zero text ids).
+"""Prompt encoding of the FLUX and SD3 stacks (port of
+``unigen_tpu/models/text_encoder.py``): the CLIP pooled embedding alone
+(the condition task name's embedding), the FLUX prompt encoding (T5
+sequence embeddings, CLIP pooled, zero text ids) and the SD3 one (CLIP-L
+and CLIP-G penultimate states side by side, channel-padded, with the T5
+sequence or a zero block after them; the two pooled embeddings joined).
 
 The tokenizers are duck-typed: any callable taking ``(prompts,
 padding="max_length", max_length=n, truncation=True,
@@ -12,9 +14,10 @@ depends on no transformers.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from unigen_tpu_torch.models.clip_text import CLIPTextConfig, clip_encode
 from unigen_tpu_torch.models.t5_text import T5Config, t5_encode
@@ -43,3 +46,32 @@ def flux_encode_prompt(clip_params, clip_cfg: CLIPTextConfig, t5_params,
     t5_ids = tokenize(tokenizer_2, prompts, max_sequence_length)
     embeds = t5_encode(t5_params, t5_cfg, t5_ids)
     return embeds, pooled, torch.zeros(embeds.shape[1], 3, device=embeds.device)
+
+
+def sd3_encode_prompt(clip_l, clip_l_cfg: CLIPTextConfig, clip_g,
+                      clip_g_cfg: CLIPTextConfig, t5_params, t5_cfg: Optional[T5Config],
+                      tokenizer, tokenizer_2, tokenizer_3, prompts: Sequence[str],
+                      max_sequence_length: int = 256,
+                      pad_to_dim: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SD3 triple-encoder prompt embedding -> (context, pooled):
+    context = [pad(concat(clip_l_h, clip_g_h)) ; t5_h] along the sequence,
+    pooled = [l | g]. Without T5 (``t5_params`` None) the CLIP block is
+    channel-padded to ``pad_to_dim`` and a zero
+    [B, max_sequence_length, pad_to_dim] block takes T5's place, as diffusers
+    does with no ``text_encoder_3``; without ``pad_to_dim`` the context is
+    the CLIP block alone."""
+    _, hid_l, pooled_l = clip_encode(clip_l, clip_l_cfg, tokenize(tokenizer, prompts, 77))
+    _, hid_g, pooled_g = clip_encode(clip_g, clip_g_cfg, tokenize(tokenizer_2, prompts, 77))
+    clip_h = torch.cat([hid_l, hid_g], dim=-1)
+    pooled = torch.cat([pooled_l, pooled_g], dim=-1)
+    if t5_params is not None:
+        t5_h = t5_encode(t5_params, t5_cfg, tokenize(tokenizer_3, prompts,
+                                                     max_sequence_length))
+        clip_h = F.pad(clip_h, (0, t5_h.shape[-1] - clip_h.shape[-1]))
+        return torch.cat([clip_h, t5_h], dim=1), pooled
+    if pad_to_dim is not None:
+        t5_h = clip_h.new_zeros(clip_h.shape[0], max_sequence_length, pad_to_dim)
+        clip_h = F.pad(clip_h, (0, pad_to_dim - clip_h.shape[-1]))
+        return torch.cat([clip_h, t5_h], dim=1), pooled
+    return clip_h, pooled

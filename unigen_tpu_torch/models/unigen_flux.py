@@ -160,7 +160,8 @@ def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
         _, hc = flux_double_block(
             ctrl["shared_expert"]["weave_text"],
             torch.cat([hidden_states, cond_states], dim=1), control_enc,
-            control_temb, rope2, heads=heads, context_first=False)
+            control_temb, rope2, heads=heads, context_first=False,
+            context_out=False)
         s = hidden_states.shape[1]
         exp_h = hc[:, :s] + exp_h
         exp_c = hc[:, s:] + exp_c
@@ -285,7 +286,8 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
         _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
                                       pre.moe_hidden, pre.control_enc,
                                       pre.block_temb, rope_cn_double,
-                                      heads=heads, context_first=False)
+                                      heads=heads, context_first=False,
+                                      context_out=False)
         res = linear(index_params(ctrl["add_double"], 0), cn_out)
         if return_control_residuals:
             dbl_ys.append(capture(res))
@@ -298,7 +300,7 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
             _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], j), h,
                                           pre.control_enc, pre.block_temb,
                                           rope_cn_double, heads=heads,
-                                          context_first=False)
+                                          context_first=False, context_out=False)
             res = linear(index_params(ctrl["add_double"], j), cn_out)
             if return_control_residuals:
                 dbl_ys.append(capture(res))

@@ -245,7 +245,7 @@ def unigen_sd3_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                 cn_in = h
             _, cn_out = sd3_joint_block(index_params(ctrl["joint_blocks"], table[i]),
                                         cn_in, pre.control_enc, pre.cond_temb,
-                                        heads=heads)
+                                        heads=heads, context_out=False)
             if return_control_residuals:
                 cn_ys.append(cn_out if control_residuals_bits == 16 else
                              quantize_residual(cn_out, control_residuals_bits))

@@ -32,18 +32,32 @@ per-token scales (XLA-fused ops in JAX; plain PyTorch here).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Sequence
 
 import torch
 
 from unigen_tpu_torch.ops.cuda import quant_matmul
+from unigen_tpu_torch.utils import param_bytes
 
 
-def quantize_weight(w: torch.Tensor) -> dict:
-    """[..., in, out] -> int8 codes with per-(block, out-channel) scales."""
+def _scale(amax: torch.Tensor, qmax: float, reciprocal: bool) -> torch.Tensor:
+    """amax / qmax where amax > 0, else 1. ``reciprocal=False`` divides (IEEE,
+    by a tensor on amax's device: a CUDA tensor divided by a Python number
+    is multiplied by its reciprocal), as the JAX functions run eagerly;
+    ``reciprocal=True`` multiplies by the fp32 reciprocal of qmax, as XLA
+    compiles the division under ``jax.jit`` (the JAX loader's streaming
+    quantization). The two differ in the last bit of some scales."""
+    q = amax.new_tensor(qmax)
+    s = amax * (1.0 / q) if reciprocal else amax / q
+    return torch.where(amax > 0, s, torch.ones_like(amax))
+
+
+def quantize_weight(w: torch.Tensor, *, reciprocal: bool = False) -> dict:
+    """[..., in, out] -> int8 codes with per-(block, out-channel) scales
+    (``_scale`` for ``reciprocal``)."""
     wf = w.to(torch.float32)
-    amax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    scale = _scale(wf.abs().amax(dim=-2, keepdim=True), 127.0, reciprocal)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q": q, "w_scale": scale}
 
@@ -65,12 +79,11 @@ def unpack_int4(p: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-2)
 
 
-def quantize_weight_int4(w: torch.Tensor) -> dict:
+def quantize_weight_int4(w: torch.Tensor, *, reciprocal: bool = False) -> dict:
     """[..., in, out] -> nibble-packed int4 with per-(block, out-chan) scales.
     Symmetric [-7, 7]; the -8 code is unused."""
     wf = w.to(torch.float32)
-    amax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    scale = _scale(wf.abs().amax(dim=-2, keepdim=True), 7.0, reciprocal)
     q = torch.clamp(torch.round(wf / scale), -7, 7).to(torch.int8)
     return {"w_q4": pack_int4(q), "w_scale": scale}
 
@@ -275,29 +288,67 @@ def _eligible(path_names, node, *, min_dim: int, skip: Sequence[str]) -> bool:
     return min(in_dim, out_dim) >= min_dim
 
 
+def _quantize_walk(params: Any, *, min_dim: int, skip: Sequence[str], bits: int,
+                   reciprocal: bool, donate: bool) -> Any:
+    """The walk of ``quantize_tree`` and ``quantize_tree_streaming``. Without
+    ``donate`` every eligible {'w','b'} linear is quantized in one call into
+    a new tree. With ``donate`` a stacked weight is quantized one [in, out]
+    block at a time (its scales are per block, so the bits are the same and
+    the transient is one block's) and each linear's dict is replaced in
+    place, freeing its floating-point weight at once."""
+    assert bits in (4, 8), bits
+    qfn = functools.partial(quantize_weight if bits == 8 else quantize_weight_int4,
+                            reciprocal=reciprocal)
+
+    def per_block(w):
+        if w.dim() <= 2:
+            return qfn(w)
+        out = None
+        for i in range(w.shape[0]):
+            q = per_block(w[i])
+            if out is None:
+                out = {k: v.new_empty((w.shape[0],) + tuple(v.shape)) for k, v in q.items()}
+            for k, v in q.items():
+                out[k][i].copy_(v)
+        return out
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            if "w" in node and isinstance(node["w"], torch.Tensor):
+                if not _eligible(path, node, min_dim=min_dim, skip=skip) or (
+                        bits == 4 and node["w"].shape[-2] % 2 != 0):
+                    return node            # small, router / experts, or odd in-dim
+                if not donate:
+                    q = qfn(node["w"])
+                    if "b" in node:
+                        q["b"] = node["b"]
+                    return q
+                q = per_block(node["w"])
+                if "b" in node:
+                    q["b"] = node["b"]
+                node.clear()
+                node.update(q)
+                return node
+            out = {k: walk(v, path + (k,)) for k, v in node.items()}
+            if not donate:
+                return out
+            node.update(out)
+            return node
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path) for v in node)
+        return node
+    return walk(params, ())
+
+
 def quantize_tree(params: Any, *, min_dim: int = 512,
                   skip: Sequence[str] = ("gate", "experts"),
                   bits: int = 8) -> Any:
     """Convert every eligible {'w','b'} linear to int8 (or packed int4,
-    ``bits=4``). Small layers (below min_dim), the router gate and the MoE
-    expert stacks stay floating point. Works on meta tensors too."""
-    assert bits in (4, 8), bits
-    qfn = quantize_weight if bits == 8 else quantize_weight_int4
-
-    def _walk(node, path):
-        if isinstance(node, dict):
-            if "w" in node and isinstance(node["w"], torch.Tensor):
-                if not _eligible(path, node, min_dim=min_dim, skip=skip):
-                    return node
-                if bits == 4 and node["w"].shape[-2] % 2 != 0:
-                    return node            # odd in-dim: not packable
-                q = qfn(node["w"])
-                if "b" in node:
-                    q["b"] = node["b"]
-                return q
-            return {k: _walk(v, path + (k,)) for k, v in node.items()}
-        return node
-    return _walk(params, ())
+    ``bits=4``) in a new tree. Small layers (below min_dim), the router gate
+    and the MoE expert stacks stay floating point. Works on meta tensors
+    too."""
+    return _quantize_walk(params, min_dim=min_dim, skip=skip, bits=bits,
+                          reciprocal=False, donate=False)
 
 
 def quantize_unigen_serving(params: dict, *, base_bits: int = 4,
@@ -314,6 +365,54 @@ def quantize_unigen_serving(params: dict, *, base_bits: int = 4,
                                   else 8))
         for k, v in params["control"].items()}
     return out
+
+
+#: min(in, out) below which a text-tower linear stays floating point.
+TEXT_QUANT_MIN_DIM = 512
+
+
+def quantize_tree_streaming(params: Any, *, min_dim: int = 512,
+                            skip: Sequence[str] = ("gate", "experts"),
+                            bits: int = 8, donate: bool = True) -> Any:
+    """``quantize_tree``'s leaves with the scales rounded as the JAX
+    package's jitted streaming walk rounds them (``_scale`` with
+    ``reciprocal``), at bounded device memory. With ``donate`` (the default)
+    the tree is CONSUMED, each linear replaced in place, so the peak is the
+    source tree plus one block's transient; without it the result is a new
+    tree, each linear quantized in one call."""
+    return _quantize_walk(params, min_dim=min_dim, skip=skip, bits=bits, reciprocal=True,
+                          donate=donate)
+
+
+def quantize_text_tower(params: Any, *, bits: int = 8, min_dim: int = None,
+                        donate: bool = True) -> Any:
+    """The serving quantization of a prompt-encoder tower (T5, CLIP):
+    every linear at least ``TEXT_QUANT_MIN_DIM`` wide to int8 (or packed
+    int4), with no skip list (a text tower has no router); embeddings,
+    norms and the relative bias stay floating point."""
+    md = TEXT_QUANT_MIN_DIM if min_dim is None else min_dim
+    return quantize_tree_streaming(params, bits=bits, skip=(), min_dim=md,
+                                   donate=donate)
+
+
+def quantize_unigen_serving_streaming(params: dict, *, base_bits: int = 4,
+                                      adapter_block_bits: int = 4,
+                                      donate: bool = True) -> dict:
+    """``quantize_unigen_serving`` through the streaming walk (consumes
+    ``params`` with ``donate``)."""
+    out = dict(params)
+    out["base"] = quantize_tree_streaming(params["base"], bits=base_bits, donate=donate)
+    out["control"] = {
+        k: quantize_tree_streaming(v, bits=(adapter_block_bits
+                                            if k in ("double_blocks", "single_blocks")
+                                            else 8), donate=donate)
+        for k, v in params["control"].items()}
+    return out
+
+
+def quantized_bytes(params: Any) -> int:
+    """Bytes of every leaf of a (quantized) tree."""
+    return param_bytes(params)
 
 
 _FROZEN_KEYS = ("w_q", "w_q4", "w_scale")

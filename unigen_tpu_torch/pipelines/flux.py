@@ -30,125 +30,8 @@ from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
 from unigen_tpu_torch.ops.packing import (pack_latents, prepare_latent_image_ids,
                                           unpack_latents)
 from unigen_tpu_torch.pipelines import caching, scheduling
+from unigen_tpu_torch.pipelines.caching import CacheMode, resolve_cache_mode
 from unigen_tpu_torch.utils import resolve_device, tree_map
-
-
-@dataclass(frozen=True)
-class CacheMode:
-    """The resolved cache knobs of one ``generate`` call."""
-    interval: int = 1            # control or model cache refresh interval
-    threshold: float = 0.0       # adaptive control or model cache threshold
-    adaptive: bool = False
-    cfg_cache: bool = False
-    model_cache: bool = False
-    order: int = 0
-    hybrid_interval: int = 1     # the hybrid's base (model) interval
-    hybrid_adaptive: bool = False
-    control_threshold: float = 0.0
-    model_threshold: float = 0.0
-    bits: int = 16
-
-    @property
-    def hybrid(self) -> bool:
-        return self.hybrid_interval > 1 or self.hybrid_adaptive
-
-    @property
-    def exact(self) -> bool:
-        return self.interval <= 1 and not self.adaptive and not self.hybrid
-
-
-def resolve_cache_mode(num_steps: int, *, control_cache_interval: int = 1,
-                       control_cache_threshold: float = 0.0,
-                       cfg_cache: bool = False, model_cache_interval: int = 1,
-                       model_cache_threshold: float = 0.0,
-                       model_cache_order: int = 0, residual_cache_bits: int = 16,
-                       quality_profile: Optional[str] = None) -> CacheMode:
-    """The cache knobs of ``generate`` (and a quality profile) -> the mode,
-    with the JAX pipeline's ValueErrors for the combinations it refuses."""
-    explicit = dict(control_cache_interval=control_cache_interval,
-                    control_cache_threshold=control_cache_threshold,
-                    cfg_cache=cfg_cache,
-                    model_cache_interval=model_cache_interval,
-                    model_cache_threshold=model_cache_threshold,
-                    model_cache_order=model_cache_order)
-    if residual_cache_bits != 16:
-        explicit["residual_cache_bits"] = residual_cache_bits
-    knobs = caching.quality_profile_knobs(
-        quality_profile, caching.PROFILE_TABLES["flux"], explicit,
-        num_steps=num_steps)
-    residual_cache_bits = knobs.get("residual_cache_bits", residual_cache_bits)
-    control_cache_interval = knobs.get("control_cache_interval",
-                                       control_cache_interval)
-    model_cache_interval = knobs.get("model_cache_interval", model_cache_interval)
-    model_cache_order = knobs.get("model_cache_order", model_cache_order)
-
-    model_cache = model_cache_interval > 1 or model_cache_threshold > 0.0
-    hybrid_interval = 1
-    hybrid_adaptive = model_cache_threshold > 0.0 and control_cache_threshold > 0.0
-    if hybrid_adaptive:
-        if model_cache_interval > 1 or control_cache_interval > 1:
-            raise ValueError("adaptive hybrid caching (both thresholds > 0) "
-                             "takes thresholds only; leave the intervals at 1")
-        if cfg_cache:
-            raise ValueError("cfg_cache does not compose with hybrid caching "
-                             "(skip steps already bypass the negative stream)")
-        if control_cache_threshold <= model_cache_threshold:
-            raise ValueError(
-                "adaptive hybrid caching requires control_cache_threshold > "
-                "model_cache_threshold (below it, full refreshes fire before "
-                "base ever would and the schedule degenerates to the adaptive "
-                f"model cache), got c={control_cache_threshold} "
-                f"m={model_cache_threshold}")
-        model_cache, interval, threshold = False, 1, 0.0
-    elif model_cache_interval > 1 and control_cache_interval > 1:
-        if control_cache_threshold > 0.0 or model_cache_threshold > 0.0:
-            raise ValueError("hybrid caching takes both intervals OR both "
-                             "thresholds, not a mix")
-        if cfg_cache:
-            raise ValueError("cfg_cache does not compose with hybrid caching "
-                             "(skip steps already bypass the negative stream)")
-        if (control_cache_interval <= model_cache_interval
-                or control_cache_interval % model_cache_interval):
-            raise ValueError(
-                "hybrid caching requires model_cache_interval < "
-                "control_cache_interval and control_cache_interval a multiple "
-                "of model_cache_interval (every full step must fall on a base "
-                f"boundary), got c={control_cache_interval} "
-                f"m={model_cache_interval}")
-        model_cache, hybrid_interval = False, model_cache_interval
-        interval, threshold = control_cache_interval, 0.0
-    elif model_cache:
-        if control_cache_interval > 1 or control_cache_threshold > 0.0:
-            raise ValueError("the model cache composes with the control cache "
-                             "only via fixed intervals on both (hybrid mode); "
-                             "thresholds are mutually exclusive with it")
-        if cfg_cache:
-            raise ValueError("cfg_cache composes with the control cache only; "
-                             "the model cache already skips the negative "
-                             "stream on replay steps")
-        interval, threshold = model_cache_interval, model_cache_threshold
-    else:
-        interval, threshold = control_cache_interval, control_cache_threshold
-    adaptive = threshold > 0.0 and not hybrid_adaptive
-    if cfg_cache and control_cache_interval <= 1 and not adaptive:
-        raise ValueError("cfg_cache requires control_cache_interval > 1 or "
-                         "control_cache_threshold > 0 (it rides the same "
-                         "refresh schedule)")
-    if residual_cache_bits not in (4, 8, 16):
-        raise ValueError(f"residual_cache_bits must be 4, 8 or 16, got "
-                         f"{residual_cache_bits}")
-    if residual_cache_bits < 16 and model_cache and not (
-            hybrid_interval > 1 or hybrid_adaptive):
-        raise ValueError("residual_cache_bits<16 quantizes the control-residual "
-                         "cache; the pure model cache has none (use a "
-                         "control-cache or hybrid mode)")
-    return CacheMode(interval=interval, threshold=threshold, adaptive=adaptive,
-                     cfg_cache=cfg_cache, model_cache=model_cache,
-                     order=model_cache_order, hybrid_interval=hybrid_interval,
-                     hybrid_adaptive=hybrid_adaptive,
-                     control_threshold=control_cache_threshold,
-                     model_threshold=model_cache_threshold,
-                     bits=residual_cache_bits)
 
 
 @dataclass
