@@ -85,6 +85,27 @@ Phases, in order; any failure exits non-zero:
      the encoders give fp32 latents and embeddings (as the JAX Trainer
      runs), so every kernel runs on fp32 activations; finite losses and the
      config's launch counts.
+  6b. train_lora: LoRA fine-tuning (rank LORA_RANK on DEFAULT_LORA_TARGETS,
+     factors drawn at the fp shapes) over the same frozen W4A8 tree at full
+     width and depth with the reference's gate (random token selection):
+     TRAIN_LORA_STEPS micro-steps through Trainer with a work_dir under
+     build/ and a save at TRAIN_LORA_SAVE; a second Trainer resumes from
+     that save (state, optimizer and generator equal bit for bit) and takes
+     the remaining steps, its losses beside the first run's; launches equal
+     the LoRA formula (the targeted linears leave W4A8; the frozen MoE
+     preprocess gets no attention backward); train_lora_grad_check against
+     the plain versions (at full depth the gradients vanish in the
+     saturated random stream; held at LOAD_FLUX_DEPTH);
+     the exported adapter read back bit for bit; then the adapter loaded
+     from its files into a UniGenFluxPipeline on the W4A8 tree, every
+     re-quantized leaf equal to fold_linear_node's, two requests, and
+     train_lora_path_check (every kernel call of a forward).
+  6c. train_routing: ROUTING_STEPS timed micro-steps (after a warm-up) each
+     of top-2 with the dense dispatch, the consis module (its second call attends
+     over 3072 keys) and remat "dots", beside the top-1 remat "full" step,
+     at full width and the deepest depth that fits; peak bytes, launches
+     equal to the formula, and every kernel call of one micro-step of each
+     at the shallowest depth against its plain version.
   7. flux_1024: one b=1 request through the same W4A8 tree at 1024^2, 4
      steps (attention over 4608, 8192 and 8704 keys, past the TPU's
      2560-key streaming gate): launch counts and a per-call path check.
@@ -143,12 +164,21 @@ Phases, in order; any failure exits non-zero:
      text towers through a serving-tree cache, twice: the cold start and the
      restart from the cache (the same tree bit for bit); two requests
      through its __call__ with launches equal to the formula, and
-     load_flux_path_check (one forward and one T5 encode at M = 512). The
-     checkpoint directories are removed at the end.
+     load_flux_path_check (one forward and one T5 encode at M = 512).
+  4f. train_cli (after 4e): the training entry point's main on 4e's
+     directory (bf16, the .bin adapter, stub tokenizers) and a
+     Subjects-200K-layout dataset under build/ with pre-rendered depth
+     conditions: LoRA rank LORA_RANK, CLI_STEPS steps with a checkpoint
+     every CLI_SAVE, a second main resumed to CLI_RESUME_TO, a third that
+     finds the run complete (s per step, the prefetcher's stats,
+     checkpoint bytes and save and resume seconds); then
+     load_flux_pipeline(..., lora_dir=...) serves one request with the
+     adapter. The checkpoint directories are removed at the end.
  10. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
-the 1024^2 lengths, and the rope-free backward at train_blocks' shapes and
+the 1024^2 lengths, kernel 1 and its backward at the consis module's 3072
+keys, and the rope-free backward at train_blocks' shapes and
 SD3's; plain versions past ~2 GB of fp32 logits run in head chunks. It
 imports neither JAX nor the JAX package.
 
@@ -229,6 +259,9 @@ NOROPE_CASES = [
     (2, 24, 4096, 4096, 64),   # 1024^2: dual attn2
     (2, 24, 8192, 8192, 64),   # 1024^2: weave_cond
     (2, 24, 8525, 8525, 64)]   # 1024^2: weave_text
+# kernel 1 at the consis module's second call at 512^2: [expert hidden |
+# consis condition] attending with the image stream, 3 x 1024 keys
+CONSIS_CASES = [(1, 24, 3072, 3072, 0)]
 ROPE_LONG_CASES = [       # kernel 1 at FLUX's 1024^2 lengths (b=1)
     (1, 24, 4608, 4608, 0), (1, 24, 8192, 8192, 0), (1, 24, 8704, 8704, 0)]
 # --schedules: the timing-only library of the rope-free forward's D=64
@@ -314,6 +347,13 @@ SD3_PIPE_MODES = [
     ("fast", dict(quality_profile="fast")),            # model cache k=4, order 1
     ("control_interval_2_cfg_cache", dict(control_cache_interval=2, cfg_cache=True))]
 LOAD_FLUX_DEPTH = REDUCED_DEPTHS[1]
+# 6b: LoRA fine-tuning over phase 4's tree; 4f: the training entry point on
+# 4e's directory (micro-steps, the save step, the resumed run's end)
+LORA_RANK = 16
+TRAIN_LORA_STEPS, TRAIN_LORA_SAVE = 4, 2
+CLI_STEPS, CLI_SAVE, CLI_RESUME_TO = 4, 2, 6
+CLI_ITEMS = 8             # Subjects-200K items written for 4f
+ROUTING_STEPS = 3         # 6c: timed micro-steps of each variant (the median read)
 CHECKPOINTS = Path(__file__).resolve().parent / "build" / "checkpoints"
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
 # 65536 registers / 384 threads, rounded down to the allocation unit of 8:
@@ -1000,7 +1040,7 @@ def phase_kernels(torch, dev, seed, pqm=None):
         r = torch.arange(n, device=dev)
         return torch.stack([torch.zeros_like(r), r // HW, r % HW], -1).float()
 
-    for b, h, sq, skv, ident in ATTN_CASES + ROPE_LONG_CASES:
+    for b, h, sq, skv, ident in ATTN_CASES + CONSIS_CASES + ROPE_LONG_CASES:
         d = fa.HEAD_DIM
         tabs = attention_tables(torch, dev, ids, sq, skv, ident)
         cos, sin, kcos, ksin = tabs
@@ -1209,7 +1249,7 @@ def backward_rows(torch, dev, g, ids):
     from unigen_tpu_torch.ops.rope import apply_rotary
     rows = {"flash_attention_rope_bwd": [], BWD_NAMES[0]: [], BWD_NAMES[1]: []}
     for b_mult in (1, 2):
-        for b, h, sq, skv, ident in ATTN_CASES:
+        for b, h, sq, skv, ident in ATTN_CASES + CONSIS_CASES:
             b *= b_mult
             d = fa.HEAD_DIM
             tabs = attention_tables(torch, dev, ids, sq, skv, ident)
@@ -1401,8 +1441,10 @@ def quantized_calls(params, cfg, leaf: str, again: bool = False) -> int:
     the calls that the remat bodies (base + control double block i >= 1
     with its add linear, base + control single block with its add linear)
     run once more in the backward. The context branch of the control double
-    blocks and of the shared expert's weave_text (the context's output
-    projection and ``ff_context``) is never run: their callers discard it."""
+    blocks, of the shared expert's weave_text and of the consis module (the
+    context's output projection and ``ff_context``) is never run: their
+    callers discard it. The consis module's block0 runs twice per
+    condition, its block1 never (the reference's quirk)."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
     bb = cfg.flux
     if again:
@@ -1414,7 +1456,11 @@ def quantized_calls(params, cfg, leaf: str, again: bool = False) -> int:
                 "add_double": bb.num_layers, "add_single": bb.num_single_layers,
                 "shared_expert": cfg.condition_nums, "condition_embed": cfg.condition_nums}
         default = 1
-    return sum(uses.get(path[1], default) for path, _ in tree_leaves_with_path(params)
+    def use(path):
+        if path[1] == "consis":
+            return 0 if again or path[2] == "block1" else 2 * cfg.condition_nums
+        return uses.get(path[1], default)
+    return sum(use(path) for path, _ in tree_leaves_with_path(params)
                if path[-1] == leaf and not discarded_context(path))
 
 
@@ -1422,7 +1468,8 @@ def discarded_context(path) -> bool:
     """A leaf of a control block's context branch that no forward runs: the
     control double blocks (FLUX), the control joint blocks (SD3) and the
     shared expert's weave_text return only their sample stream."""
-    control_double = path[:2] in (("control", "double_blocks"), ("control", "joint_blocks")) \
+    control_double = path[:2] in (("control", "double_blocks"), ("control", "joint_blocks"),
+                                  ("control", "consis")) \
         or path[:3] == ("control", "shared_expert", "weave_text")
     return control_double and ("ff_context" in path or "to_add_out" in path)
 
@@ -1443,7 +1490,8 @@ def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
     w4 = quantized_calls(params, cfg, "w_q4")
     single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
     control = (bb.num_layers + (bb.num_single_layers if single_ctrl else 0)
-               + (2 if cc.use_shared_expert else 0) * cfg.condition_nums)
+               + (2 if cc.use_shared_expert else 0) * cfg.condition_nums
+               + (2 if "consis" in params["control"] else 0) * cfg.condition_nums)
     experts = 0
     if not (cc.use_modulate or cc.use_rope):
         experts = 2 * cc.moe.num_experts(cfg.condition_nums) * cfg.condition_nums
@@ -1456,9 +1504,12 @@ def expected_launches(params, cfg, batch: int = 1, fp32: bool = False):
             "quantize_act": w4 + quantized_calls(params, cfg, "w_q")}
 
 
-def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
-    """Kernel launches of one training micro-step at ``batch`` with remat
-    "full" and a frozen base: every forward call of expected_launches, plus
+def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False,
+                            remat="full", lora: bool = False):
+    """Kernel launches of one training micro-step at ``batch`` with a frozen
+    base: every forward call of expected_launches, plus, under remat "full"
+    or "dots" (which saves only the weight products: a kernel is a ctypes
+    call the dispatcher does not see, so it runs again as under "full"),
     the forward that each remat body (base + control double block i >= 1,
     base + control single block) runs again in the backward; one backward
     per attention call except base double block 0, which sees no trainable
@@ -1467,22 +1518,40 @@ def expected_train_launches(params, cfg, batch: int = 1, fp32: bool = False):
     rope-free backward (the rounding of their operands); one activation
     quantization per quantized linear call of the forward and of the
     recomputation (the straight-through backward of the default
-    ``quant_bwd="bf16"`` quantizes nothing)."""
+    ``quant_bwd="bf16"`` quantizes nothing). In LoRA mode (``lora``)
+    ``params`` is the tree after ``fold_for_training``: its targeted
+    linears are floating products and leave the W4A8 count; and the MoE
+    preprocess (the block experts, the consis module, the shared expert's
+    weave) holds no factor and sees no trainable input, so its attention
+    calls get no backward."""
     bb, cc = cfg.flux, cfg.control
     per = expected_launches(params, cfg, batch)
     single_ctrl = cc.use_single_trans_blocks and "single_blocks" in params["control"]
-    base_again = bb.num_layers - 1 + bb.num_single_layers
-    ctrl_again = bb.num_layers - 1 + (bb.num_single_layers if single_ctrl else 0)
-    w4_again = quantized_calls(params, cfg, "w_q4", again=True)
-    w8_again = quantized_calls(params, cfg, "w_q", again=True)
+    again = remat not in (False, None, "none")
+    base_again = (bb.num_layers - 1 + bb.num_single_layers) if again else 0
+    ctrl_again = (bb.num_layers - 1 + (bb.num_single_layers if single_ctrl else 0)
+                  if again else 0)
+    w4_again = quantized_calls(params, cfg, "w_q4", again=True) if again else 0
+    w8_again = quantized_calls(params, cfg, "w_q", again=True) if again else 0
     rope, norope = per["flash_attention_rope"], per["flash_attention"]
     rope_fwd = rope + base_again + (ctrl_again if cc.use_rope else 0)
     norope_fwd = norope + (0 if cc.use_rope else ctrl_again)
+    rope_bwd, norope_bwd = rope - 1, norope
+    if lora:
+        weave = ((2 if cc.use_shared_expert else 0)
+                 + (2 if "consis" in params["control"] else 0)) * cfg.condition_nums
+        experts = 0
+        if not (cc.use_modulate or cc.use_rope):
+            experts = 2 * cc.moe.num_experts(cfg.condition_nums) * cfg.condition_nums
+            if cc.moe.batch_mode == "per_sample":
+                experts *= batch
+        rope_bwd -= weave if cc.use_rope else 0
+        norope_bwd -= experts + (0 if cc.use_rope else weave)
     return {"flash_attention_rope": rope_fwd,
-            "rope_rotate": rope_fwd + rope - 1 + (norope_fwd + norope if fp32 else 0),
-            BWD_NAMES[0]: rope - 1, BWD_NAMES[1]: rope - 1,
+            "rope_rotate": rope_fwd + rope_bwd + (norope_fwd + norope_bwd if fp32 else 0),
+            BWD_NAMES[0]: rope_bwd, BWD_NAMES[1]: rope_bwd,
             "flash_attention": norope_fwd,
-            NOROPE_BWD_NAMES[0]: norope, NOROPE_BWD_NAMES[1]: norope,
+            NOROPE_BWD_NAMES[0]: norope_bwd, NOROPE_BWD_NAMES[1]: norope_bwd,
             "w4a8_matmul": per["w4a8_matmul"] + w4_again, "w4a8_general": 0,
             "quantize_act": per["quantize_act"] + w4_again + w8_again}
 
@@ -2029,7 +2098,7 @@ def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
     from unigen_tpu_torch.config import TrainConfig
     from unigen_tpu_torch.ops.quant import split_trainable
     from unigen_tpu_torch.train import train_step as ts
-    from unigen_tpu_torch.utils import tree_leaves, tree_map
+    from unigen_tpu_torch.utils import tree_leaves
 
     bb = cfg.flux
     tcfg = TrainConfig(train_batch_size=BATCH, remat="full",
@@ -2088,8 +2157,22 @@ def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
                      phase=phase + "_profile", micro_batch=BATCH)
 
     # gradients of one micro-step with the kernels and with the plain versions
-    draws = ts.draw(batch, g)
-    builder = ts.make_loss_builder(cfg, tcfg)
+    if not grad_check(torch, phase, ts.make_loss_builder(cfg, tcfg), base_arg, batch,
+                      ts.draw(batch, g), trainable, per_step,
+                      f"{bb.num_layers} double / {bb.num_single_layers} single (full)"):
+        raise SystemExit(f"{phase}_grad_check: every gradient vanishes")
+    return launches
+
+
+def grad_check(torch, phase, builder, base_arg, batch, draws, trainable, per_step, depth):
+    """``phase``_grad_check: the gradients of one micro-step's loss
+    (``builder(base_arg, batch, draws)``) with respect to ``trainable``,
+    with the kernels (every attention backward also held against its plain
+    version, shadowed_backwards) and with the plain versions; stops unless
+    they agree within 3e-2 relative L2 and the backward calls number
+    ``per_step``'s. -> the number of leaves with a nonzero plain gradient
+    (none where the random stream saturates and the gradient vanishes)."""
+    from unigen_tpu_torch.utils import tree_leaves, tree_map
 
     def grads():
         leaves = tree_map(lambda x: x.detach().requires_grad_(), trainable)
@@ -2097,7 +2180,7 @@ def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
         loss, _ = builder(base_arg, batch, draws)(leaves)
         out = torch.autograd.grad(loss, flat, allow_unused=True)
         return float(loss.detach()), [torch.zeros_like(t) if x is None else x
-                             for t, x in zip(flat, out)]
+                                      for t, x in zip(flat, out)]
     t0 = time.time()
     checks = {}
     with shadowed_backwards(torch, checks):
@@ -2111,28 +2194,28 @@ def phase_train(torch, dev, cfg, params, seed, n_trainable, phase="train"):
                                           max(r["do_max"] for r in c)],
                              zero_do_calls=sum(r["do_max"] == 0 for r in c))
                   for name, c in checks.items()}
-    want_calls = {"flash_attention_rope_bwd": per_step[BWD_NAMES[0]],
+    want_calls = {"flash_attention_rope_bwd": per_step.get(BWD_NAMES[0], 0),
                   "flash_attention_bwd": per_step.get(NOROPE_BWD_NAMES[0], 0)}
     num = sum((a.float() - b.float()).square().sum() for a, b in zip(grad_k, grad_p))
     den = sum(b.float().square().sum() for b in grad_p)
-    rel = (num / den).sqrt().item()
+    rel = (num / den).sqrt().item() if den > 0 else None
     cos = [torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
                                                  dim=0).item()
            for a, b in zip(grad_k, grad_p) if b.float().norm() > 0]
-    emit(dict(phase=phase + "_grad_check",
-              depth=f"{bb.num_layers} double / {bb.num_single_layers} single (full)",
+    emit(dict(phase=phase + "_grad_check", depth=depth,
               loss_kernels=loss_k, loss_plain=loss_p, rel_l2=rel, leaves=len(grad_p),
-              worst_leaf_cosine=min(cos), seconds=time.time() - t0,
+              nonzero_leaves=len(cos), worst_leaf_cosine=min(cos) if cos else None,
+              seconds=time.time() - t0,
               backward_path_check=path_check,
               note="the MoE gather's backward is a scatter-add with atomics: "
                    "its bits change from run to run"))
-    if not (rel <= 3e-2):
+    if cos and not (rel is not None and rel <= 3e-2):
         raise SystemExit(f"{phase}: kernel gradients differ from plain: rel L2 {rel}")
     if any(c["disagree"] for c in path_check.values()) or \
             {n: c["calls"] for n, c in path_check.items()} != nonzero(want_calls):
         raise SystemExit(f"{phase}: a backward kernel disagrees with its plain version "
                          f"on the path, or calls != {want_calls}: {path_check}")
-    return launches
+    return len(cos)
 
 
 def phase_train_blocks(torch, dev, seed):
@@ -2226,6 +2309,461 @@ def phase_trainer(torch, dev, params, seed):
     if launches != want or dtypes != ["torch.float32"]:
         raise SystemExit(f"Trainer launches {launches} != expected {want}, "
                          f"trainable dtypes {dtypes}")
+
+
+# ---------------------------------------------------------------- training run
+
+def with_rts(cfg):
+    """``cfg`` with the reference's training gate: random token selection
+    (UniGenUtils.py:17-66, ``use_rts=True``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, control=dataclasses.replace(
+        cfg.control, moe=dataclasses.replace(cfg.control.moe, use_rts=True)))
+
+
+def lora_adapter(torch, params, rank, name, gen, dev, targets=None):
+    """A rank-``rank`` adapter drawn at the fp shapes of the targeted
+    linears of a (quantized) tree: ``init_lora_adapters`` on a meta tree of
+    their unpacked [in, out] shapes, as the JAX tests draw factors on the fp
+    tree and train them over its quantized copy."""
+    from unigen_tpu_torch.models.lora import DEFAULT_LORA_TARGETS, init_lora_adapters
+
+    def shapes(node):
+        if not isinstance(node, dict):
+            return node
+        if "w_q4" in node or "w_q" in node:
+            q = node.get("w_q", node.get("w_q4"))
+            lead, (i, o) = tuple(q.shape[:-2]), tuple(q.shape[-2:])
+            return {"w": torch.empty(lead + ((i * 2 if "w_q4" in node else i), o),
+                                     device="meta")}
+        return {k: shapes(v) for k, v in node.items()}
+    return init_lora_adapters(shapes(params), targets or DEFAULT_LORA_TARGETS, rank, [name],
+                              gen=gen, device=dev)[name]
+
+
+def cut_lora(lora, cfg):
+    """``lora``'s factors cut to the control stacks of ``cfg``'s depth (the
+    first blocks, as flux_reduced cuts the tree)."""
+    per = cfg.control.single_control_dev
+    n = {"double_blocks": cfg.flux.num_layers // per, "add_double": cfg.flux.num_layers // per,
+         "single_blocks": cfg.flux.num_single_layers // per,
+         "add_single": cfg.flux.num_single_layers // per}
+    return {path: {k: v[:n[path.split(".")[1]]] if path.split(".")[1] in n else v
+                   for k, v in ab.items()} for path, ab in lora.items()}
+
+
+def lora_folded_layout(params, lora):
+    """The layout of ``fold_for_training(params, lora)`` without its values:
+    each targeted linear a floating ``w`` (for the launch formulas, which
+    read only leaf names)."""
+    from unigen_tpu_torch.models.lora import tree_get, tree_set
+    out = params
+    for path in lora:
+        node = tree_get(out, path)
+        out = tree_set(out, path, {"w": None, **({"b": node["b"]} if "b" in node else {})})
+    return out
+
+
+def fill_like(torch, shapes, dev, gen):
+    """A random serving subtree in the layout of the meta tree ``shapes``,
+    filled as ``init_quantized_serving_params`` fills its leaves."""
+    def fill(name, meta):
+        out = torch.empty(meta.shape, dtype=meta.dtype, device=dev)
+        if not meta.dtype.is_floating_point:
+            return out.random_(-127, 128, generator=gen)
+        if name == "w_scale":
+            return out.uniform_(1e-4, 1e-3, generator=gen)
+        return out.normal_(0.0, 0.02, generator=gen)
+    return {k: fill_like(torch, v, dev, gen) if isinstance(v, dict) else fill(k, v)
+            for k, v in shapes.items()}
+
+
+def stub_trainer_encoders(torch, dev, bb, seed, dtype):
+    """Text and image stand-ins for a Trainer at full width, functions of
+    their inputs alone (two Trainers fed the same batches get the same
+    encodings): Gaussian text embeddings drawn from ``seed`` and each
+    prompt's CRC, and latents from an 8x8 average pool and a seeded 3 -> C
+    channel projection of the pixels, in ``dtype``."""
+    import zlib
+    proj = torch.randn(3, bb.in_channels // 4, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+
+    def encode_text(prompts):
+        embeds, pooled = [], []
+        for p in prompts:
+            g = torch.Generator(device=dev).manual_seed(seed * 2**32 + zlib.crc32(p.encode()))
+            embeds.append(torch.randn(SEQ_TXT, bb.joint_attention_dim, generator=g, device=dev))
+            pooled.append(torch.randn(bb.pooled_projection_dim, generator=g, device=dev))
+        return {"prompt_embeds": torch.stack(embeds).to(dtype),
+                "pooled": torch.stack(pooled).to(dtype)}
+
+    def encode_images(pixels):
+        x = torch.nn.functional.avg_pool2d(torch.as_tensor(pixels, device=dev), 8)
+        return torch.einsum("bchw,cd->bdhw", x, proj).to(dtype)
+    return encode_text, encode_images
+
+
+def trainer_batches(seed, n):
+    """``n`` Trainer batches of BATCH 512^2 images drawn from ``seed``."""
+    import numpy as np
+    host = np.random.default_rng(seed)
+    px = 16 * HW
+    return [{"descriptions": ["a photo"] * BATCH, "task_names": ["canny"] * BATCH,
+             "pixel_values": host.uniform(-1, 1, (BATCH, 3, px, px)).astype(np.float32),
+             "condition_pixels": host.uniform(-1, 1, (BATCH, 3, px, px)).astype(np.float32)}
+            for _ in range(n)]
+
+
+def train_path_check(torch, phase, run, want):
+    """``phase``_path_check: every kernel call of ``run()`` (a training
+    micro-step: forward, recompute and backward) also through its plain
+    version (shadowed_kernels, shadowed_backwards); stops if one disagrees
+    or the calls differ from the formula ``want``."""
+    checks = {}
+    with shadowed_kernels(torch, checks), shadowed_backwards(torch, checks):
+        run()
+    fwd = path_check_summary({k: v for k, v in checks.items() if not k.endswith("_bwd")})
+    bwd = {k: dict(calls=len(v), disagree=sum(not r["ok"] for r in v),
+                   max_rel_l2=max(r["rel_l2"] for r in v))
+           for k, v in checks.items() if k.endswith("_bwd")}
+    calls = {n: c["calls"] for n, c in {**fwd, **bwd}.items()}
+    expected = nonzero({
+        "flash_attention_rope": want.get("flash_attention_rope", 0),
+        "flash_attention": want.get("flash_attention", 0),
+        "w4a8_matmul": want.get("w4a8_matmul", 0), "quantize_act": want.get("quantize_act", 0),
+        "flash_attention_rope_bwd": want.get(BWD_NAMES[0], 0),
+        "flash_attention_bwd": want.get(NOROPE_BWD_NAMES[0], 0)})
+    emit(dict(phase=phase + "_path_check", **fwd, **bwd, expected_calls=expected))
+    if any(c["disagree"] for c in {**fwd, **bwd}.values()) or calls != expected:
+        raise SystemExit(f"{phase}_path_check: {calls} (expected {expected}) or a kernel "
+                         f"disagrees with its plain version")
+
+
+def timed_steps(torch, step, n):
+    """``n`` calls of ``step()`` (each returns metrics) from launch counts 0
+    and a reset peak: (losses, ms per call, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step()["step_loss"]))            # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, nonzero(launch_counts()), torch.cuda.max_memory_allocated()
+
+
+def phase_train_lora(torch, dev, params, vae_cfg, vae_params, seed):
+    """6b. LoRA fine-tuning over phase 4's frozen W4A8 tree at full width
+    and depth with the reference's gate (random token selection): rank
+    LORA_RANK on DEFAULT_LORA_TARGETS, TRAIN_LORA_STEPS micro-steps through
+    Trainer with a work_dir and a save at step TRAIN_LORA_SAVE; a second
+    Trainer resumes from it (its state equal to the saved one bit for bit)
+    and takes the same steps; launches equal the formula of the folded tree
+    (the targeted linears leave W4A8 for plain products); the gradient
+    check against the plain kernels; the exported adapter read back bit
+    for bit; then the adapter served: loaded from its files into a
+    pipeline on the W4A8 tree, every re-quantized leaf equal to
+    fold_linear_node's, two requests, and every kernel call of a forward
+    against its plain version. -> launches of the timed micro-steps."""
+    import shutil
+
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.config import TrainConfig
+    from unigen_tpu_torch.io.torch_bridge import load_lora_adapters
+    from unigen_tpu_torch.models.lora import fold_linear_node, tree_get
+    from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline
+    from unigen_tpu_torch.train import train_step as ts
+    from unigen_tpu_torch.train.loop import Trainer
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+
+    cfg = with_rts(presets.flux_full())
+    bb = cfg.flux
+    name = "canny"
+    work = CHECKPOINTS.parent / "train_lora"
+    shutil.rmtree(work, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    lora = lora_adapter(torch, params, LORA_RANK, name, gen, dev)
+    tcfg = TrainConfig(train_batch_size=BATCH, remat="full", lora_rank=LORA_RANK,
+                       lora_adapter_name=name, max_train_steps=TRAIN_LORA_STEPS,
+                       checkpointing_steps=TRAIN_LORA_SAVE, lr_scheduler="constant",
+                       learning_rate=1e-4, seed=seed)
+    text, images = stub_trainer_encoders(torch, dev, bb, seed + 2, torch.bfloat16)
+    base_arg = {"base": params["base"], "control_frozen": params["control"]}
+
+    def trainer():
+        return Trainer(cfg, tcfg, base_params=base_arg, control_params=lora,
+                       encode_text=text, encode_images=images, work_dir=str(work),
+                       device=dev)
+    batches = trainer_batches(seed + 3, TRAIN_LORA_STEPS)
+    first = trainer()
+    t0 = time.time()
+    first.step(batches[0])                                  # warm-up, not saved
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    first = trainer()
+    head = batches[:TRAIN_LORA_SAVE]
+    losses1, ms1, launches1, peak1 = timed_steps(
+        torch, lambda: first.step(head.pop(0)), TRAIN_LORA_SAVE)
+    t0 = time.time()
+    first.save()
+    torch.cuda.synchronize()
+    save_s = time.time() - t0
+    step_dir = work / f"step_{TRAIN_LORA_SAVE:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    saved = (first.state, first._generator.get_state())
+    snapshot = work.parent / "train_lora_resume"
+    shutil.rmtree(snapshot, ignore_errors=True)
+    shutil.copytree(work, snapshot)
+    tail = batches[TRAIN_LORA_SAVE:]
+    losses2, ms2, launches2, peak2 = timed_steps(
+        torch, lambda: first.step(tail.pop(0)), TRAIN_LORA_STEPS - TRAIN_LORA_SAVE)
+    first.save()
+    launches = add_counts((1, launches1), (1, launches2))
+
+    second = Trainer(cfg, tcfg, base_params=base_arg, control_params=lora,
+                     encode_text=text, encode_images=images, work_dir=str(snapshot),
+                     device=dev)
+    t0 = time.time()
+    resumed = second.maybe_resume()
+    torch.cuda.synchronize()
+    resume_s = time.time() - t0
+    state, gstate = saved
+    same = (resumed and second.global_step == TRAIN_LORA_SAVE
+            and not trees_equal(torch, second.state.control, state.control)[1]
+            and not trees_equal(torch, second.state.opt_state.mu, state.opt_state.mu)[1]
+            and not trees_equal(torch, second.state.opt_state.nu, state.opt_state.nu)[1]
+            and second.state.opt_state.count == state.opt_state.count
+            and torch.equal(second._generator.get_state(), gstate))
+    resumed_losses = [float(second.step(b)["step_loss"])
+                      for b in batches[TRAIN_LORA_SAVE:]]
+    folded = lora_folded_layout(params, lora)
+    per_step = nonzero(expected_train_launches(folded, cfg, BATCH, lora=True))
+    want = {k: n * TRAIN_LORA_STEPS for k, n in per_step.items()}
+    whole_w4 = expected_train_launches(params, cfg, BATCH)["w4a8_matmul"]
+    emit(dict(phase="train_lora", depth=f"{bb.num_layers} double / "
+              f"{bb.num_single_layers} single (full)", rank=LORA_RANK, adapter=name,
+              targets=len(lora), factor_elements=sum(t.numel() for ab in lora.values()
+                                                     for t in ab.values()),
+              gate="top-1, random token selection", micro_batch=BATCH,
+              warm_up_s=warm_s, step_ms=ms1 + ms2,
+              ms_per_micro_step=statistics.median(ms1 + ms2),
+              losses=losses1 + losses2, resumed_losses=resumed_losses,
+              peak_bytes=max(peak1, peak2), checkpoint_bytes=ckpt_bytes, save_s=save_s,
+              resume_s=resume_s, resumed_state_equal=bool(same),
+              launches=launches, expected_launches=want,
+              w4a8_per_step_whole_tree=whole_w4))
+    if not all(math.isfinite(x) for x in losses1 + losses2 + resumed_losses):
+        raise SystemExit("train_lora: non-finite loss")
+    if launches != want or not same:
+        raise SystemExit(f"train_lora: launches {launches} != expected {want}, or the "
+                         f"resumed state differs from the saved one ({same})")
+
+    # one step's gradients with respect to a/b against the plain kernels:
+    # at full depth the random W4A8 stream saturates and no gradient reaches
+    # the control branch (recorded). The factors' gradients x^T dy see the
+    # attention forward's bf16 rounding in x (the two versions round P at
+    # different points) beside the backward kernels' own: read on an H100,
+    # 2.4e-2 to 2.8e-2 relative L2 at 8/16, 4/8 and 2/4 blocks alike; the
+    # check holds at LOAD_FLUX_DEPTH
+    batch = first.prepare_batch(batches[0])
+    draws = ts.draw(batch, torch.Generator(device=dev).manual_seed(seed + 5),
+                    rts_shape=ts.rts_draw_shape(cfg, batch["latents"].shape))
+    for depth in ((bb.num_layers, bb.num_single_layers), LOAD_FLUX_DEPTH):
+        c, t = flux_reduced(torch, cfg, params, depth)
+        factors = cut_lora(first.state.control, c)
+        if grad_check(torch, "train_lora", ts.make_loss_builder(c, tcfg),
+                      {"base": t["base"], "control_frozen": t["control"]}, batch, draws,
+                      factors, nonzero(expected_train_launches(
+                          lora_folded_layout(t, factors), c, BATCH, lora=True)),
+                      f"{depth[0]} double / {depth[1]} single"):
+            break
+    else:
+        raise SystemExit("train_lora_grad_check: the gradients vanish at every depth")
+
+    # the exported adapter, read back
+    export = work / "lora_adapters"
+    back = load_lora_adapters(str(export), params, device=dev)[name]
+    differ = sorted(set(back) ^ set(first.state.control)) + [
+        p for p in back if p in first.state.control and not all(
+            torch.equal(back[p][k], first.state.control[p][k]) for k in ("a", "b"))]
+    emit(dict(phase="train_lora_export", path=str(export / name), stacks=len(back),
+              bytes=(export / name / "pytorch_lora_weights.safetensors").stat().st_size,
+              same_bits=not differ))
+    if differ:
+        raise SystemExit(f"train_lora: the exported adapter reads back different at {differ}")
+    trained = dict(first.state.control)
+    del first, second, saved, state
+    torch.cuda.empty_cache()
+
+    # served: the adapter from its files, folded into the W4A8 tree
+    pipe = UniGenFluxPipeline(cfg=presets.flux_full(), params=params, vae_cfg=vae_cfg,
+                              vae_params=vae_params, dtype=torch.bfloat16, device=dev)
+    t0 = time.time()
+    pipe.load_lora(str(export))
+    pipe.set_condition_adapter(name)
+    torch.cuda.synchronize()
+    switch_s = time.time() - t0
+    bad, leaves = [], 0
+    for path, ab in trained.items():
+        want_node = fold_linear_node(tree_get(params, path), ab, jit=True)
+        got = tree_get(pipe.params, path)
+        for k, v in want_node.items():
+            leaves += 1
+            if not torch.equal(got[k], v):
+                bad.append(f"{path}.{k}")
+    codes = sorted({p[-1] for path in trained
+                    for p, _ in tree_leaves_with_path(tree_get(pipe.params, path))})
+    host = torch.Generator().manual_seed(seed + 7)
+    reqs = [dict(prompt_embeds=torch.randn(1, SEQ_TXT, bb.joint_attention_dim, generator=host),
+                 pooled=torch.randn(1, bb.pooled_projection_dim, generator=host),
+                 cond_pooled=torch.randn(1, bb.pooled_projection_dim, generator=host),
+                 control_pixels=torch.rand(1, 3, PIPE_RES, PIPE_RES, generator=host) * 2 - 1)
+            for _ in range(2)]
+    kw = dict(height=PIPE_RES, width=PIPE_RES, num_inference_steps=STEPS)
+    pipe.generate(**reqs[0], **kw)                           # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [pipe.generate(**r, **kw) for r in reqs]
+    wall = time.perf_counter() - t0
+    served = nonzero(launch_counts())
+    want_served = expected_pipeline_launches(pipe.params, pipe.cfg, [(1, STEPS, 0)] * 2)
+    emit(dict(phase="train_lora_serve", switch_s=switch_s, folded_leaves=leaves,
+              leaves_differ=bad[:8], folded_leaf_names=codes, requests=2, steps=STEPS,
+              images_per_s=2 / wall, launches=served, expected_launches=want_served,
+              out_shape=list(outs[0].shape)))
+    if bad or served != want_served or any(
+            o.dtype != torch.uint8 or tuple(o.shape) != (1, PIPE_RES, PIPE_RES, 3)
+            for o in outs):
+        raise SystemExit(f"train_lora_serve: folded leaves differ at {bad[:8]}, or launches "
+                         f"{served} != {want_served}, or bad outputs")
+    checks = {}
+    with torch.no_grad(), shadowed_kernels(torch, checks):
+        pipe.generate(**reqs[0], **dict(kw, num_inference_steps=1))
+    summary = path_check_summary(checks)
+    expected = {n: v for n, v in nonzero(expected_launches(pipe.params, pipe.cfg, 1)).items()
+                if n in ("flash_attention_rope", "flash_attention", "w4a8_matmul",
+                         "quantize_act")}
+    emit(dict(phase="train_lora_path_check", **summary, expected_calls=expected))
+    if any(c["disagree"] for c in summary.values()) or \
+            {n: c["calls"] for n, c in summary.items()} != expected:
+        raise SystemExit(f"train_lora_path_check: {summary} (expected {expected})")
+    del pipe
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(snapshot, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def consis_tree(torch, params, cfg, dev, gen):
+    """Phase 4's serving tree with a random consis module (block0, block1:
+    FLUX double blocks under the serving policy, int8) added to its
+    control branch."""
+    from unigen_tpu_torch.models.unigen_flux import init_unigen_flux_params
+    from unigen_tpu_torch.ops.quant import quantize_unigen_serving
+    shapes = quantize_unigen_serving(init_unigen_flux_params(cfg, device="meta",
+                                                             dtype=torch.bfloat16))
+    consis = fill_like(torch, shapes["control"]["consis"], dev, gen)
+    return {"base": params["base"], "control": dict(params["control"], consis=consis)}
+
+
+def phase_train_routing(torch, dev, params, seed):
+    """6c. ROUTING_STEPS timed micro-steps (after a warm-up; the median
+    read) of each routing variant the port took over in this slice, at
+    full width, on phase 4's W4A8 tree: top-2 with the dense einsum
+    dispatch, the consis module (its second call attends over 3072 keys),
+    and remat "dots"; each beside the plain top-1 remat "full" step at the
+    same depth (the deepest of full depth and REDUCED_DEPTHS that fits),
+    with peak bytes, launches equal to the formula, and a path check of
+    every kernel call of one micro-step at the shallowest depth."""
+    import dataclasses
+
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.config import TrainConfig
+    from unigen_tpu_torch.ops.quant import split_trainable
+    from unigen_tpu_torch.train import train_step as ts
+
+    full = presets.flux_full()
+    moe = full.control.moe
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    variants = {
+        "full": (full, "full", params),
+        "top2_dense": (dataclasses.replace(full, control=dataclasses.replace(
+            full.control, moe=dataclasses.replace(moe, top_k=2, fast_dispatch=False))),
+            "full", params),
+        "consis": None,
+        "dots": (full, "dots", params)}
+    consis_cfg = dataclasses.replace(full, control=dataclasses.replace(
+        full.control, use_consis_module=True))
+    variants["consis"] = (consis_cfg, "full", consis_tree(torch, params, consis_cfg, dev, gen))
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+    lat = 2 * HW
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+    bb = full.flux
+    batch = dict(latents=mk(BATCH, bb.in_channels // 4, lat, lat),
+                 condition_latents=mk(BATCH, bb.in_channels // 4, lat, lat),
+                 prompt_embeds=mk(BATCH, SEQ_TXT, bb.joint_attention_dim),
+                 pooled=mk(BATCH, bb.pooled_projection_dim),
+                 condition_pooled=mk(BATCH, bb.pooled_projection_dim))
+    depths = [(bb.num_layers, bb.num_single_layers)] + list(REDUCED_DEPTHS)
+    out = {}
+    for name, (cfg, remat, tree) in variants.items():
+        tcfg = TrainConfig(train_batch_size=BATCH, remat=remat, lr_scheduler="constant")
+        for depth in depths:
+            c, t = flux_reduced(torch, cfg, tree, depth)
+            trainable, frozen = split_trainable(t["control"])
+            base_arg = {"base": t["base"], "control_frozen": frozen}
+            step = ts.make_train_step(c, tcfg)
+            state = [ts.init_train_state(trainable, tcfg)]
+
+            def one():
+                state[0], m = step(state[0], base_arg, batch, g)
+                return m
+            try:
+                one()                                         # warm-up
+                losses, ms, launches, peak = timed_steps(torch, one, ROUTING_STEPS)
+            except torch.cuda.OutOfMemoryError as e:
+                del state
+                torch.cuda.empty_cache()
+                print(f"# train_routing {name}: {depth} does not fit ({e}); shallower",
+                      flush=True)
+                continue
+            want = {k: n * ROUTING_STEPS for k, n in
+                    nonzero(expected_train_launches(t, c, BATCH, remat=remat)).items()}
+            out[name] = dict(depth=list(depth), remat=remat, top_k=c.control.moe.top_k,
+                             fast_dispatch=c.control.moe.fast_dispatch,
+                             consis="consis" in t["control"], step_ms=ms,
+                             ms=statistics.median(ms), losses=losses,
+                             peak_bytes=peak, launches=launches, expected_launches=want)
+            del state
+            torch.cuda.empty_cache()
+            if launches != want or not all(math.isfinite(x) for x in losses):
+                raise SystemExit(f"train_routing {name}: launches {launches} != {want} "
+                                 f"or losses {losses}")
+            break
+        else:
+            raise SystemExit(f"train_routing {name}: no depth fits")
+        # every kernel call of one micro-step against its plain version
+        c, t = flux_reduced(torch, cfg, tree, REDUCED_DEPTHS[-1])
+        trainable, frozen = split_trainable(t["control"])
+        base_arg = {"base": t["base"], "control_frozen": frozen}
+        step = ts.make_train_step(c, tcfg)
+        state = ts.init_train_state(trainable, tcfg)
+        train_path_check(torch, f"train_routing_{name}",
+                         lambda: step(state, base_arg, batch, g),
+                         nonzero(expected_train_launches(t, c, BATCH, remat=remat)))
+        del state
+        torch.cuda.empty_cache()
+    for name, rec in out.items():
+        ref = out["full"]
+        if rec["depth"] == ref["depth"]:
+            rec.update(ms_over_full=rec["ms"] / ref["ms"],
+                       peak_over_full=rec["peak_bytes"] / ref["peak_bytes"])
+    emit(dict(phase="train_routing", micro_batch=BATCH, variants=out))
+    return out
 
 
 def hires_phase(torch, phase, run, forward, per_forward, steps, **extra):
@@ -2436,12 +2974,15 @@ def phase_sd3_1024(torch, model, seed):
 
 def forward_log(srv):
     """Wrap the server's family forward: each call appends (rows, "full" or
-    "replay") to the returned list."""
-    calls, real = [], srv._fwd
+    "replay") to the returned list. The wrapper reaches the server through a
+    weak reference: a bound method stored on the server would make a
+    reference cycle that holds a closed server until the collector runs."""
+    import weakref
+    calls, real, server = [], type(srv)._fwd, weakref.ref(srv)
 
     def logged(lat, *a, **kw):
         calls.append((lat.shape[0], "replay" if "control_residuals" in kw else "full"))
-        return real(lat, *a, **kw)
+        return real(server(), lat, *a, **kw)
     srv._fwd = logged
     return calls
 
@@ -2615,12 +3156,31 @@ def serve_staggered(srv, pair):
     futs, real = [None, None], srv._fwd
 
     def first(*a, **kw):
-        srv._fwd = real
+        unwrap(srv, "_fwd")
         futs[1] = srv.submit(**pair[1])
         return real(*a, **kw)
-    srv._fwd = first
+    wrap(srv, "_fwd", first)
     futs[0] = srv.submit(**pair[0])
     return futs
+
+
+def wrap(obj, name, fn):
+    """Set ``obj.name`` to ``fn``, keeping what it shadows for ``unwrap``."""
+    obj.__dict__.setdefault("_wrapped", []).append((name, obj.__dict__.get(name)))
+    setattr(obj, name, fn)
+
+
+def unwrap(obj, name):
+    """Undo the last ``wrap`` of ``name``: the instance attribute it replaced,
+    or none, so that the class's method shows again (storing a bound method
+    on its own instance would be a reference cycle)."""
+    stack = obj.__dict__["_wrapped"]
+    i = max(k for k, (n, _) in enumerate(stack) if n == name)
+    _, saved = stack.pop(i)
+    if saved is None:
+        delattr(obj, name)
+    else:
+        setattr(obj, name, saved)
 
 
 def admit_together(srv, reqs):
@@ -2628,14 +3188,12 @@ def admit_together(srv, reqs):
     boundary: the worker's first admission waits on its condition (which
     lets the submits take the lock) until every request holds a slot.
     -> their futures."""
-    real = srv._apply_admissions
-
     def gathered():
-        srv._apply_admissions = real
+        unwrap(srv, "_apply_admissions")
         srv._work.wait_for(lambda: sum(s.payload is not None for s in srv._slots)
                            == len(reqs), timeout=900)
-        real()
-    srv._apply_admissions = gathered
+        srv._apply_admissions()
+    wrap(srv, "_apply_admissions", gathered)
     return [srv.submit(**r) for r in reqs]
 
 
@@ -3880,6 +4438,10 @@ def phase_sd3_pipeline(torch, dev, seed, root):
     from unigen_tpu_torch.utils import param_bytes
 
     cfg = presets.sd35_medium()
+    torch.cuda.synchronize()
+    before_collect = torch.cuda.memory_allocated()
+    print(f"# sd3_pipeline: {before_collect} bytes resident at the phase's start, "
+          "before gc.collect()", flush=True)
     gc.collect()             # earlier phases' tensors that only reference cycles hold
     torch.cuda.synchronize()
     phase_start = torch.cuda.memory_allocated()
@@ -3899,7 +4461,8 @@ def phase_sd3_pipeline(torch, dev, seed, root):
     pipe._prompt_cache = caching.PromptLRU(64)
     te = pipe.text_encoders
     emit(dict(phase="sd3_load", root=str(root), written_bytes=written, write_s=write_s,
-              load_s=load_s, phase_start_bytes=phase_start, **stats,
+              load_s=load_s, phase_start_bytes=phase_start,
+              before_collect_bytes=before_collect, **stats,
               transformer_bytes=param_bytes(pipe.params),
               text_bytes={k: param_bytes(v[0]) for k, v in te.items()},
               vae_bytes=param_bytes(pipe.vae_params)))
@@ -4249,6 +4812,145 @@ def phase_load_flux(torch, dev, seed, root, sd3_root):
     return line
 
 
+def write_subjects200k(root, n, res, seed):
+    """A Subjects-200K-layout dataset of ``n`` items (score_5/itemNNN_target_0
+    .jpg, its pre-rendered depth_large condition and description sidecar)
+    of seeded random res x res images. -> bytes written."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    (root / "score_5").mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        stem = root / "score_5" / f"item{i:03d}"
+        for kind in ("target", "depth_large"):
+            Image.fromarray(rng.integers(0, 256, (res, res, 3), dtype=np.uint8)).save(
+                f"{stem}_{kind}_0.jpg")
+        Path(f"{stem}_target_0.json").write_text(
+            json.dumps({"description": f"item {i}: a photo of a red cube"}))
+    return sum(f.stat().st_size for f in (root / "score_5").iterdir())
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names, log):
+    """Time every call of ``cls``'s methods ``names`` (seconds appended to
+    ``log[name]``), restored on exit."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(self, *a, **kw):
+            import torch
+            t0 = time.time()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            log.setdefault(name, []).append(time.time() - t0)
+            return out
+        return timed
+    for n in names:
+        setattr(cls, n, wrap(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def phase_train_cli(torch, dev, seed, root):
+    """4f. The training entry point (``unigen_tpu_torch.cli.train.main``) on
+    4e's FLUX directory (full width, LOAD_FLUX_DEPTH blocks, the
+    reference's .bin adapter, loaded in bf16 with seeded stub tokenizers
+    and handed to main) and a Subjects-200K-layout dataset under build/
+    with pre-rendered depth conditions: LoRA rank LORA_RANK, CLI_STEPS
+    steps with a checkpoint every CLI_SAVE; a second main resumes to
+    CLI_RESUME_TO; a third finds the run complete; then
+    load_flux_pipeline(..., lora_dir=...) serves one request with the
+    exported adapter on the W4A8 tree."""
+    import shutil
+
+    from unigen_tpu_torch.cli import train as cli
+    from unigen_tpu_torch.pipelines import caching
+    from unigen_tpu_torch.pipelines.loading import load_flux_pipeline
+    from unigen_tpu_torch.train import checkpoint as ckpt_lib
+    from unigen_tpu_torch.train.loop import Trainer
+
+    data, work = CHECKPOINTS / "subjects200k", CHECKPOINTS / "train_cli"
+    shutil.rmtree(data, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    data_bytes = write_subjects200k(data, CLI_ITEMS, PIPE_RES, seed)
+    data_s = time.time() - t0
+
+    def stubbed(pipe):
+        pipe.tokenizer = SeededTokenizer(pipe.clip_cfg.vocab_size,
+                                         pipe.clip_cfg.vocab_size - 1, seed)
+        pipe.tokenizer_2 = SeededTokenizer(pipe.t5_cfg.vocab_size, 1, seed + 1)
+        pipe._prompt_cache = caching.PromptLRU(64)
+        return pipe
+    t0 = time.time()
+    pipe = stubbed(load_flux_pipeline(str(root), adapter_dir=str(root / "adapter"),
+                                      condition_types=("depth",), dtype=torch.bfloat16,
+                                      device=dev))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+
+    def argv(steps):
+        return ["--pretrained_model_name_or_path", str(root), "--data_path", str(data),
+                "--dataset_name", "Subjects200K", "--condition_types", "depth",
+                "--rank", str(LORA_RANK), "--train_batch_size", str(BATCH),
+                "--resolution", str(PIPE_RES), "--max_train_steps", str(steps),
+                "--checkpointing_steps", str(CLI_SAVE), "--lr_scheduler", "constant",
+                "--work_dir", str(work), "--seed", str(seed)]
+    runs, log = [], {}
+    with timed_methods(Trainer, ("save", "maybe_resume", "step"), log):
+        for steps in (CLI_STEPS, CLI_RESUME_TO, CLI_RESUME_TO):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            trainer = cli.main(argv(steps), pipeline=pipe)
+            torch.cuda.synchronize()
+            runs.append(dict(max_train_steps=steps, s=time.time() - t0,
+                             peak_bytes=torch.cuda.max_memory_allocated(),
+                             global_step=None if trainer is None else trainer.global_step,
+                             prefetcher=None if trainer is None else trainer.prefetcher.stats(),
+                             latest=ckpt_lib.latest_step(str(work))))
+            del trainer
+    ckpts = sorted(d.name for d in work.iterdir() if d.name.startswith("step_"))
+    ckpt_bytes = sum(f.stat().st_size for f in (work / ckpts[0]).iterdir())
+    adapter = work / "lora_adapters" / "depth" / "pytorch_lora_weights.safetensors"
+    step_s = log.get("step", [])
+    line = dict(phase="train_cli", depth=list(LOAD_FLUX_DEPTH), rank=LORA_RANK,
+                micro_batch=BATCH, resolution=PIPE_RES, dataset_items=CLI_ITEMS,
+                dataset_bytes=data_bytes, dataset_write_s=data_s, pipeline_load_s=load_s,
+                runs=runs, step_s=step_s, s_per_step=statistics.median(step_s[1:] or step_s),
+                checkpoints=ckpts, checkpoint_bytes=ckpt_bytes, save_s=log.get("save"),
+                resume_s=log.get("maybe_resume"), adapter_bytes=adapter.stat().st_size)
+    emit(line)
+    want = [CLI_STEPS, CLI_RESUME_TO, None]
+    if [r["global_step"] for r in runs] != want or runs[-1]["latest"] != CLI_RESUME_TO \
+            or runs[1]["prefetcher"]["batches"] != CLI_RESUME_TO - CLI_STEPS:
+        raise SystemExit(f"train_cli: runs {runs} (expected global steps {want})")
+    del pipe
+    torch.cuda.empty_cache()
+
+    served = stubbed(load_flux_pipeline(str(root), adapter_dir=str(root / "adapter"),
+                                        condition_types=("depth",), quantize="w4a8",
+                                        quantize_text="w4a8", device=dev,
+                                        lora_dir=str(work / "lora_adapters")))
+    px = torch.rand(1, 3, PIPE_RES, PIPE_RES, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+    t0 = time.time()
+    img = served("a photo of a red cube", "depth", px, height=PIPE_RES, width=PIPE_RES,
+                 num_inference_steps=STEPS)
+    torch.cuda.synchronize()
+    active = served._lora.active
+    emit(dict(phase="train_cli_serve", adapters=sorted(served._lora.adapters), active=active,
+              request_s=time.time() - t0, out_shape=list(img.shape), dtype=str(img.dtype)))
+    if active != (("depth", 1.0),) or img.dtype != torch.uint8 or \
+            tuple(img.shape) != (1, PIPE_RES, PIPE_RES, 3):
+        raise SystemExit(f"train_cli_serve: adapter {active}, output {img.dtype} "
+                         f"{tuple(img.shape)}")
+    del served
+    torch.cuda.empty_cache()
+    return line
+
+
 def shape_counts(records):
     """{"MxKxN": calls} of the W4A8 path-check records."""
     out = {}
@@ -4359,8 +5061,6 @@ def main() -> int:
     done("4c stepserve")
     phase_stepserve_multires(torch, dev, params, vae_cfg, vae_params, args.seed)
     done("4d stepserve_multires")
-    del vae_params
-    torch.cuda.empty_cache()
 
     # 5. the training slice
     launches = phase_train(torch, dev, presets.flux_full(), params, args.seed,
@@ -4370,6 +5070,17 @@ def main() -> int:
     # 6. the Trainer on the same tree, fp32 activations
     phase_trainer(torch, dev, params, args.seed)
     done("6 trainer")
+
+    # 6b. LoRA fine-tuning over the same frozen tree with the reference's
+    # gate, checkpoint and resume, then the adapter served
+    lora_launches = phase_train_lora(torch, dev, params, vae_cfg, vae_params, args.seed)
+    del vae_params
+    torch.cuda.empty_cache()
+    done("6b train_lora")
+
+    # 6c. top-2 with the dense dispatch, the consis module, remat "dots"
+    phase_train_routing(torch, dev, params, args.seed)
+    done("6c train_routing")
 
     # 7. the W4A8 FLUX tree at 1024^2
     phase_flux_1024(torch, dev, params)
@@ -4405,6 +5116,9 @@ def main() -> int:
         load_flux = phase_load_flux(torch, dev, args.seed, CHECKPOINTS / "flux",
                                     CHECKPOINTS / "sd35_medium")
         done("4e load_flux")
+        # 4f. the training entry point on 4e's directory
+        phase_train_cli(torch, dev, args.seed, CHECKPOINTS / "flux")
+        done("4f train_cli")
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
@@ -4464,6 +5178,8 @@ def main() -> int:
             entry["sd3_pipeline_launches"] = sd3_pipeline[name]
         if name in load_flux["launches"]:
             entry["load_flux_launches"] = load_flux["launches"][name]
+        if name in lora_launches:
+            entry["train_lora_launches"] = lora_launches[name]
         if name in ("flash_attention_rope",) + BWD_NAMES:
             entry.update(rotation_source="unigen_tpu_torch/csrc/flash_attention_rope.cu",
                          rotation_launches=main_path["rope_rotate"])

@@ -37,5 +37,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n = int(out.stdout.split()[0])
     assert n >= 44
     for name in ("serving_steps", "serving_cache", "torch_bridge", "torch_bridge_sd3",
-                 "loading", "sd3"):
+                 "loading", "sd3", "lora", "checkpoint", "datasets", "sampler", "prefetch",
+                 "native", "conditions", "train"):
         assert any(name in p.name for p in (ROOT / "unigen_tpu_torch").rglob("*.py"))

@@ -394,9 +394,12 @@ def _slice(tree, n):
     return {k: _slice(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
 
 
-def test_lora_dir_and_unknown_text_policy_raise(fake_ckpt):  # noqa: F811
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tload.load_flux_pipeline(fake_ckpt, lora_dir="/nonexistent", device="cpu")
+def test_lora_dir_and_unknown_text_policy_raise(fake_ckpt, tmp_path):  # noqa: F811
+    """A LoRA directory without adapter files, and an unknown text policy,
+    raise (the LoRA loading itself is in tests/test_torch_port_lora.py)."""
+    with pytest.raises(FileNotFoundError, match="pytorch_lora_weights"):
+        tload.load_flux_pipeline(fake_ckpt, dtype=torch.float32, lora_dir=str(tmp_path),
+                                 device="cpu")
     with pytest.raises(ValueError, match="quantize_text"):
         tload.load_flux_pipeline(fake_ckpt, dtype=torch.float32, quantize_text="w2",
                                  device="cpu")

@@ -483,12 +483,18 @@ def test_served_through_micro_batch_server():
 
 
 def test_unported_parts_raise_and_device_defaults_to_cuda():
+    """Multi-card serving still raises; an adapter switch before
+    ``load_lora`` and one to an adapter never loaded raise; with no LoRA
+    loaded the per-call switch is a no-op."""
     pipe = _torch_pipe()
-    for call in (lambda: pipe.load_lora({}), lambda: pipe.set_condition_adapter("canny"),
-                 lambda: pipe.shard(None)):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError, match="parallel"):
+        pipe.shard(None)
     assert pipe._auto_switch("canny") is None
+    with pytest.raises(ValueError, match="load_lora"):
+        pipe.set_condition_adapter("canny")
+    pipe.load_lora({})
+    with pytest.raises(KeyError, match="canny"):
+        pipe.set_condition_adapter("canny")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TPipe(cfg=pipe.cfg, params=pipe.params)

@@ -755,3 +755,36 @@ def test_chip_sd3_server_path_check():
         assert c["flash_attention"]["disagree"] == 0
     assert replay["bits"] == 16 and replay["rel_l2"] <= replay["bound"], replay
     assert all(torch.isfinite(t).all() for t in outs)
+
+
+@pytest.mark.parametrize("family", ["flux", "sd3"])
+def test_closed_server_is_freed_without_the_collector(family):
+    """A closed server whose last reference is dropped is freed by reference
+    counting alone: nothing it holds (the VAE ends, the worker threads)
+    refers back to it, so its trees, residual buffers and caches go at once,
+    without waiting for ``gc.collect()``. The same holds after chip_smoke's
+    wrappers (``forward_log``, ``decode_log``, ``serve_staggered``) have
+    been on it, as on the card."""
+    import gc
+    import weakref
+    if family == "flux":
+        srv = _port(_flux_world(), batch_size=2, num_inference_steps=2)
+        reqs = [_request(80), _request(81)]
+    else:
+        srv = _port(_sd3_world(), batch_size=2, num_inference_steps=2,
+                    height=SD3_RES, width=SD3_RES)
+        reqs = [_sd3_request(80), _sd3_request(81)]
+    chip_smoke.forward_log(srv)
+    chip_smoke.decode_log(srv)
+    for f in chip_smoke.serve_staggered(srv, reqs):
+        f.result(timeout=300)
+    srv.close()
+    ref = weakref.ref(srv)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        del srv
+        assert ref() is None, gc.get_referrers(ref())
+    finally:
+        if was:
+            gc.enable()

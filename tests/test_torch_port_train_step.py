@@ -316,20 +316,25 @@ def test_trainer_step_on_cpu():
                          log_every=1)
     assert trainer.global_step == 3 and np.isfinite(last["step_loss"])
     assert trainer.state.opt_state.count == 1
-    with pytest.raises(NotImplementedError):
-        trainer.save()
+    assert trainer.maybe_resume() is False          # no work_dir: nothing to resume
 
 
 def test_unported_training_options_raise():
+    """A mesh (ROADMAP Queue 1 item 8) and an unknown remat policy raise;
+    LoRA mode without the frozen control tree raises when the loss is
+    built (LoRA training itself is in tests/test_torch_port_lora.py)."""
     _, tc = _configs()
-    with pytest.raises(NotImplementedError):
-        t_ts.make_train_step(tc, t_config.TrainConfig(lora_rank=4))
+    build = t_ts.make_loss_builder(tc, t_config.TrainConfig(lora_rank=4))
+    _, tbatch = _batch(np.random.default_rng(0))
+    draws = t_ts.draw(tbatch, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="control_frozen"):
+        build({}, tbatch, draws)
     from unigen_tpu_torch.utils import remat_wrap
-    with pytest.raises(NotImplementedError):
-        remat_wrap(lambda x: x, "dots")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="remat"):
+        remat_wrap(lambda x: x, "some")
+    with pytest.raises(NotImplementedError, match="item 8"):
         t_loop.Trainer(tc, t_config.TrainConfig(), base_params={}, control_params={},
-                       encode_text=None, encode_images=None, work_dir="/nowhere",
+                       encode_text=None, encode_images=None, mesh=object(),
                        device="cpu")
 
 

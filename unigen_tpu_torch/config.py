@@ -148,9 +148,11 @@ class TrainConfig:
     mixed_precision: str = "bf16"
     checkpointing_steps: int = 1000
     # activation rematerialisation (utils.remat_wrap): True/"full",
-    # False/"none"; "dots" waits for a later slice of the port
+    # "dots" (save the weight products), False/"none"
     remat: Union[bool, str] = True
-    # LoRA fine-tuning mode (rank > 0) waits for models/lora.py
+    # LoRA fine-tuning (rank > 0): rank-r factors over the frozen control
+    # branch (models/lora.fold_for_training); () targets ->
+    # models/lora.DEFAULT_LORA_TARGETS; the adapter's export name
     lora_rank: int = 0
     lora_targets: tuple = ()
     lora_scale: float = 1.0

@@ -9,12 +9,15 @@ port's parameter trees (port of ``unigen_tpu/io/torch_bridge.py``).
                           tensor is a view of it (``torch.frombuffer``), so
                           the host reads a tensor's pages only when a
                           converter moves it, and never holds an fp32 copy.
+  write_safetensors       the same format written (the LoRA exports)
   read_checkpoint_dir     sorted ``*.safetensors`` shards if any, else every
                           ``*.bin`` through ``torch.load(weights_only=True)``
   load_flux_transformer   diffusers FluxTransformer2DModel -> models/flux tree
   load_unigen_adapter     the reference's trainable_control_modules state
                           dict -> the models/unigen_flux control tree
   load_adapter_checkpoint the reference's three adapter layouts
+  load_lora_adapters      the reference's per-adapter PEFT LoRA files
+  export_lora_adapters_reference  and back
   load_clip_text          transformers CLIPTextModel(WithProjection)
   load_t5_encoder         transformers T5EncoderModel
   load_vae                diffusers AutoencoderKL
@@ -37,7 +40,7 @@ import os
 import re
 import struct
 import zipfile
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -91,6 +94,35 @@ def read_safetensors(paths) -> Dict[str, torch.Tensor]:
     for path in paths:
         out.update(_read_one_safetensors(path))
     return out
+
+
+def write_safetensors(tensors: Dict[str, torch.Tensor], path: str) -> int:
+    """Write ``tensors`` in the safetensors format: the 8-byte little-endian
+    header length, the JSON header (names in sorted order, each with its
+    dtype name, shape and ``data_offsets``), padded with spaces to a
+    multiple of 8 bytes, then the raw bytes, each tensor right after the
+    last. -> bytes written."""
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header: Dict[str, Any] = {}
+    blobs, offset = [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().to("cpu").contiguous()
+        if t.dtype not in names:
+            raise ValueError(f"tensor {name!r}: dtype {t.dtype} has no safetensors name")
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        blobs.append(t)
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in blobs:
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return 8 + len(raw) + offset
 
 
 def read_torch_bin(path: str) -> Dict[str, torch.Tensor]:
@@ -366,6 +398,276 @@ def read_adapter_checkpoint(work_dir: str) -> Dict[str, torch.Tensor]:
 def load_adapter_checkpoint(work_dir: str, **kw) -> dict:
     """``load_unigen_adapter`` of ``read_adapter_checkpoint(work_dir)``."""
     return load_unigen_adapter(read_adapter_checkpoint(work_dir), **kw)
+
+
+# ------------------------------------------------------------ LoRA adapters
+#
+# The reference saves per-adapter LoRA weights with
+# FluxPipeline.save_lora_weights into {dir}/{adapter_name}/ (hook.py:29-45)
+# and restores them with set_peft_model_state_dict (hook.py:48-76): keys
+# ``transformer.{module}.lora_A.weight`` [r, in] / ``lora_B.weight`` [out, r].
+# They map onto models/lora adapters {dotted_path: {"a", "b"}} with stacked
+# per-block factors ([L, in, r] / [L, r, out]) rooted at base. / control.
+
+_LORA_DOUBLE_SUB = {
+    "norm1.linear": "norm1.linear",
+    "norm1_context.linear": "norm1_context.linear",
+    "attn.to_q": "attn.to_q", "attn.to_k": "attn.to_k", "attn.to_v": "attn.to_v",
+    "attn.add_q_proj": "attn.add_q", "attn.add_k_proj": "attn.add_k",
+    "attn.add_v_proj": "attn.add_v",
+    "attn.to_out.0": "attn.to_out", "attn.to_add_out": "attn.to_add_out",
+    "ff.net.0.proj": "ff.fc1", "ff.net.2": "ff.fc2",
+    "ff_context.net.0.proj": "ff_context.fc1", "ff_context.net.2": "ff_context.fc2",
+}
+_LORA_SINGLE_SUB = {
+    "norm.linear": "norm.linear",
+    "attn.to_q": "attn.to_q", "attn.to_k": "attn.to_k", "attn.to_v": "attn.to_v",
+    "proj_mlp": "proj_mlp", "proj_out": "proj_out",
+}
+# SD3 joint blocks (torch_bridge_sd3._sd3_block naming; attn2 = the
+# SD3.5X dual-attention branch) and SANA blocks
+_LORA_SD3_SUB = {
+    "norm1.linear": "norm1.linear",
+    "norm1_context.linear": "norm1_context.linear",
+    "attn.to_q": "attn.to_q", "attn.to_k": "attn.to_k", "attn.to_v": "attn.to_v",
+    "attn.add_q_proj": "attn.add_q", "attn.add_k_proj": "attn.add_k",
+    "attn.add_v_proj": "attn.add_v",
+    "attn.to_out.0": "attn.to_out", "attn.to_add_out": "attn.to_add_out",
+    "attn2.to_q": "attn2.to_q", "attn2.to_k": "attn2.to_k",
+    "attn2.to_v": "attn2.to_v", "attn2.to_out.0": "attn2.to_out",
+    "ff.net.0.proj": "ff.fc1", "ff.net.2": "ff.fc2",
+    "ff_context.net.0.proj": "ff_context.fc1",
+    "ff_context.net.2": "ff_context.fc2",
+}
+_LORA_SANA_SUB = {
+    "attn1.to_q": "attn1.to_q", "attn1.to_k": "attn1.to_k",
+    "attn1.to_v": "attn1.to_v", "attn1.to_out.0": "attn1.to_out",
+    "attn2.to_q": "attn2.to_q", "attn2.to_k": "attn2.to_k",
+    "attn2.to_v": "attn2.to_v", "attn2.to_out.0": "attn2.to_out",
+    "ff.conv_inverted": "ff.inverted", "ff.conv_point": "ff.point",
+}
+# torch stacked-module prefix -> CANDIDATE (jax stack path, within-block map)
+# pairs; the loader keeps the first candidate whose stack exists in the
+# target param tree (the same torch name means different stacks per family:
+# flux `transformer_blocks` = double stream, SANA's = linear-attn blocks,
+# SD3 control's = joint blocks)
+_LORA_STACKS = {
+    "transformer_blocks": [("base.double_blocks", _LORA_DOUBLE_SUB),
+                           ("base.blocks", _LORA_SANA_SUB)],
+    "single_transformer_blocks": [("base.single_blocks", _LORA_SINGLE_SUB)],
+    "control_joint_trans_blocks": [("control.double_blocks", _LORA_DOUBLE_SUB)],
+    "control_single_trans_blocks": [("control.single_blocks", _LORA_SINGLE_SUB)],
+    "control_transformer_blocks": [("control.joint_blocks", _LORA_SD3_SUB),
+                                   ("control.blocks", _LORA_SANA_SUB)],
+}
+# torch stacked modules that ARE a bare linear per block (no within-block
+# tail): the zero-init ControlNet add gates (UniGenTransformer.py:118-123,
+# :755-773) — LoRA on these is what opens the control branch's gradient
+# path in LoRA training (the gates start at exactly 0, so factors inside
+# control blocks get zero grad until the gate moves)
+_LORA_STACK_LINEARS = {
+    "controlnet_add_joint_blocks": "control.add_double",
+    "controlnet_add_single_blocks": "control.add_single",
+}
+# torch non-stacked module prefix -> (jax path prefix, within map or None)
+_LORA_FLAT = {
+    "shared_expert.0": ("control.shared_expert.weave_cond", _LORA_DOUBLE_SUB),
+    "shared_expert.1": ("control.shared_expert.weave_text", _LORA_DOUBLE_SUB),
+    "consis_module.0": ("control.consis.block0", _LORA_DOUBLE_SUB),
+    "consis_module.1": ("control.consis.block1", _LORA_DOUBLE_SUB),
+    "x_embedder": ("base.x_embedder", None),
+    "context_embedder": ("base.context_embedder", None),
+    "proj_out": ("base.proj_out", None),
+    "control_x_embedder": ("control.x_embedder", None),
+    "control_context_embedder": ("control.context_embedder", None),
+}
+
+
+def _node_exists(params, dotted: str) -> bool:
+    node = params
+    for part in dotted.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return False
+        node = node[part]
+    return True
+
+
+def _lora_torch_to_jax(module: str, params=None):
+    """torch module path -> (dotted tree path, block index or None). A torch
+    stack name that means different stacks per family (``transformer_blocks``:
+    FLUX double blocks or SANA blocks) resolves against ``params`` when
+    given."""
+    candidates = []
+    for prefix, options in _LORA_STACKS.items():
+        if module.startswith(prefix + "."):
+            idx, _, tail = module[len(prefix) + 1:].partition(".")
+            if idx.isdigit():
+                candidates += [(f"{stack}.{sub[tail]}", int(idx))
+                               for stack, sub in options if tail in sub]
+    for prefix, stack in _LORA_STACK_LINEARS.items():
+        if module.startswith(prefix + ".") and module[len(prefix) + 1:].isdigit():
+            candidates.append((stack, int(module[len(prefix) + 1:])))
+    for prefix, (path, sub) in _LORA_FLAT.items():
+        if module == prefix and sub is None:
+            candidates.append((path, None))
+        elif sub is not None and module.startswith(prefix + "."):
+            tail = module[len(prefix) + 1:]
+            if tail in sub:
+                candidates.append((f"{path}.{sub[tail]}", None))
+    if params is None:
+        return candidates[0] if candidates else (None, None)
+    for path, idx in candidates:
+        if _node_exists(params, path):
+            return path, idx
+    return None, None
+
+
+def _weight_shape(params, dotted: str):
+    node = params
+    for part in dotted.split("."):
+        node = node[part]
+    if "w" in node:
+        return tuple(node["w"].shape)
+    if "w_q" in node:
+        return tuple(node["w_q"].shape)
+    if "w_q4" in node:                       # the packed in-dim is halved
+        s = node["w_q4"].shape
+        return tuple(s[:-2]) + (s[-2] * 2, s[-1])
+    raise KeyError(f"no weight under {dotted}")
+
+
+def load_lora_adapters(input_dir: str, params: dict,
+                       adapter_names: Optional[List[str]] = None, *,
+                       dtype=torch.float32, strict: bool = True, device=None
+                       ) -> Dict[str, Dict[str, dict]]:
+    """Per-adapter LoRA directories (the reference's load_model_hook layout,
+    hook.py:48-76: ``{input_dir}/{name}/pytorch_lora_weights.safetensors``
+    with ``transformer.``-prefixed PEFT keys) -> a models/lora adapters dict
+    for ``fold_adapter`` / ``LoraSwitcher``. A module's ``.alpha`` (PEFT's
+    rank scaling) is folded into ``b`` as alpha/rank; the blocks of a stack
+    that an adapter leaves out get zero factors. ``params`` gives the stack
+    depths and weight shapes; with ``strict`` a key that maps to nothing
+    raises. Factors land on ``device`` (CUDA unless "cpu" is named)."""
+    dev = resolve_device(device)
+    if adapter_names is None:
+        adapter_names = sorted(
+            d for d in os.listdir(input_dir)
+            if os.path.isfile(os.path.join(input_dir, d, "pytorch_lora_weights.safetensors")))
+        if not adapter_names:
+            raise FileNotFoundError(f"no */pytorch_lora_weights.safetensors under {input_dir}")
+
+    adapters: Dict[str, Dict[str, dict]] = {}
+    for name in adapter_names:
+        sd = read_checkpoint_dir(os.path.join(input_dir, name))
+        per_path: Dict[str, dict] = {}       # tree path -> {idx | None: {a, b, alpha}}
+        unmapped = []
+        for key, val in sd.items():
+            k = key[len("transformer."):] if key.startswith("transformer.") else key
+            for suffix, part in ((".lora_A.weight", "a"), (".lora_B.weight", "b"),
+                                 (".alpha", "alpha")):
+                if k.endswith(suffix):
+                    module = k[: -len(suffix)]
+                    break
+            else:
+                unmapped.append(key)
+                continue
+            path, idx = _lora_torch_to_jax(module, params)
+            if path is None:
+                unmapped.append(key)
+                continue
+            per_path.setdefault(path, {}).setdefault(idx, {})[part] = val
+        if strict and unmapped:
+            raise ValueError(f"LoRA adapter '{name}': {len(unmapped)} key(s) "
+                             f"mapped to nothing: {', '.join(unmapped[:8])}"
+                             + (f" (+{len(unmapped) - 8} more)" if len(unmapped) > 8 else ""))
+
+        lora: Dict[str, dict] = {}
+        for path, blocks in per_path.items():
+            shape = _weight_shape(params, path)
+            ranks = {b["a"].shape[0] for b in blocks.values() if "a" in b}
+            if len(ranks) != 1:
+                raise ValueError(f"{path}: LoRA ranks {ranks} within one stack")
+            r = ranks.pop()
+            in_dim, out_dim = shape[-2], shape[-1]
+
+            def factors(blk):
+                # torch A [r, in] -> a [in, r]; B [out, r] -> b [r, out];
+                # PEFT scales the delta by alpha / r: folded into b
+                a = blk["a"].to(torch.float32).t()
+                b = blk["b"].to(torch.float32).t()
+                if "alpha" in blk:
+                    b = b * (float(blk["alpha"]) / r)
+                if tuple(a.shape) != (in_dim, r) or tuple(b.shape) != (r, out_dim):
+                    raise ValueError(f"{path}: LoRA {tuple(a.shape)}/{tuple(b.shape)} "
+                                     f"against the weight {shape}")
+                return a, b
+
+            if len(shape) == 3:
+                a_stack = torch.zeros((shape[0], in_dim, r), dtype=torch.float32)
+                b_stack = torch.zeros((shape[0], r, out_dim), dtype=torch.float32)
+                for idx, blk in blocks.items():
+                    if idx is None or idx >= shape[0]:
+                        raise ValueError(f"{path}: block index {idx} against the "
+                                         f"stack depth {shape[0]}")
+                    a_stack[idx], b_stack[idx] = factors(blk)
+            else:
+                (idx, blk), = blocks.items()
+                if idx is not None:
+                    raise ValueError(f"{path}: unexpected block index {idx}")
+                a_stack, b_stack = factors(blk)
+            lora[path] = {"a": a_stack.to(dev, dtype), "b": b_stack.to(dev, dtype)}
+        adapters[name] = lora
+    return adapters
+
+
+def _torch_lora_module(path: str, idx) -> str:
+    """Inverse of ``_lora_torch_to_jax``: a tree path (and block index) ->
+    the reference's torch module name."""
+    for prefix, stack in _LORA_STACK_LINEARS.items():
+        if path == stack:
+            return f"{prefix}.{idx}"
+    for prefix, options in _LORA_STACKS.items():
+        for stack, sub in options:
+            if path.startswith(stack + "."):
+                inv = {j: t for t, j in sub.items()}
+                return f"{prefix}.{idx}.{inv[path[len(stack) + 1:]]}"
+    for prefix, (root, sub) in _LORA_FLAT.items():
+        if path == root and sub is None:
+            return prefix
+        if sub is not None and path.startswith(root + "."):
+            inv = {j: t for t, j in sub.items()}
+            return f"{prefix}.{inv[path[len(root) + 1:]]}"
+    raise KeyError(f"no torch name for LoRA path '{path}'")
+
+
+def export_lora_adapters_reference(adapters: Dict[str, Dict[str, dict]],
+                                   output_dir: str) -> List[str]:
+    """Adapters in the reference's per-adapter layout (hook.py:41-45):
+    ``{output_dir}/{name}/pytorch_lora_weights.safetensors`` with
+    ``transformer.``-prefixed PEFT keys in fp32, written by
+    ``write_safetensors``. A stack's all-zero per-block factors (blocks the
+    adapter never touched) are left out, as PEFT's target_modules does.
+    -> the written paths."""
+    written = []
+    for name, lora in adapters.items():
+        sd = {}
+        for path, ab in lora.items():
+            a = ab["a"].detach().to("cpu", torch.float32)
+            b = ab["b"].detach().to("cpu", torch.float32)
+            blocks = range(a.shape[0]) if a.dim() == 3 else [None]
+            for i in blocks:
+                ai, bi = (a, b) if i is None else (a[i], b[i])
+                if i is not None and not (ai.any() or bi.any()):
+                    continue
+                m = _torch_lora_module(path, i)
+                sd[f"transformer.{m}.lora_A.weight"] = ai.t().contiguous()
+                sd[f"transformer.{m}.lora_B.weight"] = bi.t().contiguous()
+        adapter_dir = os.path.join(output_dir, name)
+        os.makedirs(adapter_dir, exist_ok=True)
+        path = os.path.join(adapter_dir, "pytorch_lora_weights.safetensors")
+        write_safetensors(sd, path)
+        written.append(path)
+    return written
 
 
 # ------------------------------------------------------------ CLIP / T5 / VAE

@@ -1,20 +1,23 @@
-"""Condition-expert MoE (port of ``unigen_tpu/models/moe.py``, top-1
-routing for serving and training).
+"""Condition-expert MoE (port of ``unigen_tpu/models/moe.py``).
 
-A GShard top-1 router on (hidden + condition) routes every stream with one
-set of slots; each expert is either a pair of modulated linears computed as
-batched matmuls over the expert axis (``use_rope or use_modulate``), or a
-pair of single transformer blocks with token-wise temb (the reference's
-shipped control config, ``use_rope = use_modulate = False``: FLUX single
-blocks or SD3 ones, by the caller's ``block_apply``): the JAX ``vmap`` over
-the expert axis becomes a loop over the experts, one block call per expert
-and stream, each on [1, capacity] tokens. The gather combine weights
-by the gate. ``batch_mode="per_sample"`` routes each sample with its own
+A GShard router on (hidden + condition) routes every stream with one set of
+slots: top-1 with the gather dispatch (``fast_dispatch``, the serving path),
+or top-1/top-2 with the dense einsum dispatch. Each expert is either a pair
+of modulated linears computed as batched matmuls over the expert axis
+(``use_rope or use_modulate``), or a pair of single transformer blocks with
+token-wise temb (the reference's shipped control config, ``use_rope =
+use_modulate = False``: FLUX single blocks or SD3 ones, by the caller's
+``block_apply``): the JAX ``vmap`` over the expert axis becomes a loop over
+the experts, one block call per expert and stream, each on [1, capacity]
+tokens. ``batch_mode="per_sample"`` routes each sample with its own
 capacity (the JAX ``vmap`` over samples becomes a loop over the batch);
 ``"global"`` routes all B*S tokens with one capacity ceil(B*S/E), so a
-sample's output depends on its batch mates, as in JAX. ``training``
-routes with ``capacity_factor`` instead of ``eval_capacity_factor``; top-1
-without random token selection draws no random numbers.
+sample's output depends on its batch mates, as in JAX. ``training`` routes
+with ``capacity_factor`` instead of ``eval_capacity_factor`` and, under
+``use_rts`` with top-1, keeps the tokens of highest priority under the
+uniform draw ``rts_uniform`` (the reference's gate): [S, E] over one
+routing group's S tokens, shared by every sample of per-sample routing and
+every condition, as the JAX package's one key is.
 """
 
 from __future__ import annotations
@@ -93,29 +96,35 @@ def _expert_compute_blocks(experts: dict, routed: Dict[str, torch.Tensor], *,
     return torch.cat(hid), torch.cat(cond)
 
 
+def rts_tokens(cfg: ControlConfig, batch: int, seq_len: int) -> int:
+    """Rows of the random token selection draw: the tokens of one routing
+    group (a sample under per-sample routing, the batch under global)."""
+    return seq_len if cfg.moe.batch_mode == "per_sample" else batch * seq_len
+
+
 def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
               hidden: torch.Tensor, condition: torch.Tensor,
               streams: Dict[str, torch.Tensor], *,
               block_apply: Optional[Callable] = None,
               heads: Optional[int] = None,
-              training: bool = False) -> MoEOutput:
+              training: bool = False,
+              rts_uniform: Optional[torch.Tensor] = None) -> MoEOutput:
     """Route on (hidden + condition), dispatch all streams, run the experts,
     combine. ``streams`` holds condition_pooled/pooled and the temb streams,
     which are routed alongside; block experts (``block_apply``, ``heads``)
-    read the routed temb and condition_temb."""
-    if cfg.moe.top_k != 1 or not cfg.moe.fast_dispatch:
-        raise NotImplementedError("the port routes top-1 with the gather "
-                                  "dispatch only; top-2 waits for a later slice")
-    if training and cfg.moe.use_rts:
-        raise NotImplementedError("random token selection in training waits "
-                                  "for a later slice of the port")
+    read the routed temb and condition_temb. Training top-1 under
+    ``use_rts`` needs ``rts_uniform`` [rts_tokens, E]."""
+    rts = training and cfg.moe.use_rts and cfg.moe.top_k == 1
+    if rts and rts_uniform is None:
+        raise ValueError("random token selection (use_rts in training) needs the "
+                         "uniform draw rts_uniform")
     b, s, d = hidden.shape
     if cfg.moe.batch_mode == "per_sample" and b > 1:
         outs = [moe_apply(params, cfg, num_experts, hidden[i:i + 1],
                           condition[i:i + 1],
                           {k: v[i:i + 1] for k, v in streams.items()},
                           block_apply=block_apply, heads=heads,
-                          training=training)
+                          training=training, rts_uniform=rts_uniform)
                 for i in range(b)]
         return MoEOutput(torch.cat([o.expert_hidden for o in outs]),
                          torch.cat([o.expert_condition for o in outs]),
@@ -127,17 +136,29 @@ def moe_apply(params: dict, cfg: ControlConfig, num_experts: int,
     cap_factor = cfg.moe.capacity_factor if training else cfg.moe.eval_capacity_factor
     capacity = (b * s if not cfg.moe.drop_tokens else gating.compute_capacity(
         b * s, num_experts, cap_factor, cfg.moe.min_capacity))
-    gate_out = gating.top1_gate(logits, capacity)
+    if cfg.moe.top_k == 2:
+        gate_out = gating.top2_gate(logits, capacity)
+    else:
+        gate_out = gating.top1_gate(logits, capacity, uniform=rts_uniform,
+                                    use_rts=rts)
 
     routed = {"hidden": hidden, "condition": condition, **streams}
-    routed, dest = gating.dispatch_streams_gather(gate_out, capacity,
-                                                  num_experts, s, routed)
+    fast = cfg.moe.fast_dispatch and gate_out.expert_idx is not None
+    if fast:
+        routed, dest = gating.dispatch_streams_gather(gate_out, capacity,
+                                                      num_experts, s, routed)
+    else:
+        routed = gating.dispatch_streams(gate_out.dispatch_mask, s, routed)
     if "cond_mod" in params["experts"]:
         hid_out, cond_out = _expert_compute_modulated(params["experts"], routed)
     else:
         hid_out, cond_out = _expert_compute_blocks(
             params["experts"], routed, block_apply=block_apply, heads=heads)
-    out_h = gating.combine_gather(gate_out, dest, hid_out, hidden.dtype)
-    out_c = gating.combine_gather(gate_out, dest, cond_out, hidden.dtype)
+    if fast:
+        out_h = gating.combine_gather(gate_out, dest, hid_out, hidden.dtype)
+        out_c = gating.combine_gather(gate_out, dest, cond_out, hidden.dtype)
+    else:
+        out_h = gating.combine(gate_out.combine_weights, hid_out, hidden.dtype)
+        out_c = gating.combine(gate_out.combine_weights, cond_out, hidden.dtype)
     return MoEOutput(out_h.reshape(b, s, d), out_c.reshape(b, s, d),
                      gate_out.aux_loss, gate_out.expert_counts)

@@ -4,8 +4,8 @@ plain serving forward), and ``UniGenFlux``, the module at the port's entry.
 
   x_embed / context_embed / time_text_embed
   base double block 0
-  -> preprocess_moe: control embedders, MoE route + experts, shared-expert
-     condition weave (2 joint blocks)
+  -> preprocess_moe: control embedders, MoE route + experts, the consis
+     module (optional), shared-expert condition weave (2 joint blocks)
   -> control double block 0 on (expert_h + expert_c), gated zero-linear add
   19x [base double -> control double (idx i*n_cn//19) -> gated add]
   stream = [txt | img]
@@ -60,18 +60,12 @@ def control_block_index_table(n_base: int, n_control: int) -> list:
     return [min(int(i / interval), n_control - 1) for i in range(n_base)]
 
 
-def _check_supported(cfg: UniGenConfig):
-    if cfg.control.use_consis_module:
-        raise NotImplementedError("the consis module waits for a later slice")
-
-
 def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
                              dtype=torch.float32,
                              base_params: Optional[dict] = None) -> dict:
     """The adapter tree; warm-started from ``base_params`` when given
     (control double/single blocks, both time embedders and x_embedder copy
     the base; the context embedder does not)."""
-    _check_supported(cfg)
     bb, cc = cfg.flux, cfg.control
     d, heads, hd = bb.inner_dim, bb.num_attention_heads, bb.attention_head_dim
     n_cn = bb.num_layers // cc.single_control_dev
@@ -106,6 +100,9 @@ def init_unigen_flux_control(cfg: UniGenConfig, *, gen=None, device=None,
             "weave_cond": init_flux_double_block(d, heads, hd, **kw),
             "weave_text": init_flux_double_block(d, heads, hd, **kw),
         }
+    if cc.use_consis_module:
+        p["consis"] = {"block0": init_flux_double_block(d, heads, hd, **kw),
+                       "block1": init_flux_double_block(d, heads, hd, **kw)}
     if cc.use_transformer_params and base_params is not None:
         p["x_embedder"] = tree_map(torch.clone, base_params["x_embedder"])
         p["time_text_embed"] = tree_map(torch.clone, base_params["time_text_embed"])
@@ -137,16 +134,36 @@ class PreprocessOutput(NamedTuple):
 
 def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
                     control_temb, cond_temb, pooled, condition_pooled,
-                    img_ids, cond_ids, txt_ids, training=False) -> moe_lib.MoEOutput:
-    """Route + experts, then the shared-expert weave."""
+                    img_ids, cond_ids, txt_ids, training=False,
+                    rts_uniform=None) -> moe_lib.MoEOutput:
+    """Route + experts, then the consis module, then the shared-expert
+    weave."""
     bb, cc = cfg.flux, cfg.control
     heads = bb.num_attention_heads
     streams = {"temb": control_temb, "condition_temb": cond_temb,
                "pooled": pooled, "condition_pooled": condition_pooled}
     out = moe_lib.moe_apply(ctrl["moe"], cc, cc.moe.num_experts(cfg.condition_nums),
                             h0, cond_h, streams, block_apply=flux_single_block,
-                            heads=heads, training=training)
+                            heads=heads, training=training, rts_uniform=rts_uniform)
     exp_h, exp_c = out.expert_hidden, out.expert_condition
+
+    if "consis" in ctrl:
+        # the reference runs consis_module[0] for BOTH calls
+        # (UniGenTransformer.py:994,998); block1 exists for the checkpoint's
+        # shape only. Both calls discard the context stream.
+        block0 = ctrl["consis"]["block0"]
+        rope_cc = flux_rope(bb, torch.cat([cond_ids, cond_ids])) if cc.use_rope else None
+        _, consis_c = flux_double_block(block0, exp_c, cond_h, cond_temb, rope_cc,
+                                        heads=heads, context_first=False,
+                                        context_out=False)
+        rope_hc = (flux_rope(bb, torch.cat([img_ids, cond_ids, img_ids]))
+                   if cc.use_rope else None)
+        _, hc = flux_double_block(block0, torch.cat([exp_h, consis_c], dim=1), h0,
+                                  control_temb, rope_hc, heads=heads,
+                                  context_first=False, context_out=False)
+        s = exp_h.shape[1]
+        exp_h = exp_h + hc[:, :s]
+        exp_c = exp_c + hc[:, s:]
 
     if "shared_expert" in ctrl:
         # weave 1: img stream <-> condition context (temb = condition temb)
@@ -171,7 +188,7 @@ def _moe_with_weave(ctrl: dict, cfg: UniGenConfig, h0, cond_h, control_enc,
 def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
                    pooled, condition_pooled, timestep, guidance,
                    img_ids, txt_ids, condition_ids, *,
-                   training=False) -> PreprocessOutput:
+                   training=False, rts_uniform=None) -> PreprocessOutput:
     """Single ([B,Sc,C] condition) and multi ([K,B,Sc,C]) condition modes."""
     cc = cfg.control
     dtype = h0.dtype
@@ -196,7 +213,8 @@ def preprocess_moe(ctrl: dict, cfg: UniGenConfig, h0, enc0, condition,
                                        cond_pooleds[k], g1000, dtype=dtype)
         out = _moe_with_weave(ctrl, cfg, h0, cond_h, control_enc, control_temb,
                               cond_temb, pooled, cond_pooleds[k], img_ids,
-                              cond_id_list[k], txt_ids, training=training)
+                              cond_id_list[k], txt_ids, training=training,
+                              rts_uniform=rts_uniform)
         moe_hidden = moe_hidden + out.expert_hidden + out.expert_condition
         block_temb = block_temb + cond_temb
     # aux loss and counts of the last condition (reference behavior)
@@ -209,6 +227,7 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
                         txt_ids, condition_ids, guidance=None, *,
                         conditioning_scale: float = 1.0, remat=False,
                         training: bool = False,
+                        rts_uniform=None,
                         control_residuals=None,
                         return_control_residuals: bool = False,
                         control_residuals_bits: int = 16):
@@ -216,7 +235,8 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     condition/condition_pooled/condition_ids may carry a leading condition
     axis for multi-condition control. ``remat`` is ``utils.remat_wrap``'s
     policy for the block bodies; ``training`` selects the MoE's training
-    capacity.
+    capacity, and its random token selection under ``use_rts`` reads the
+    uniform draw ``rts_uniform`` (``models/moe.moe_apply``).
 
     Control-residual step caching (the serving caches of the pipeline):
       * ``return_control_residuals=True`` also returns the UNSCALED
@@ -232,7 +252,6 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
         ``expert_counts`` None.
     Replaying bf16 residuals captured at the same state gives the plain
     forward's bits."""
-    _check_supported(cfg)
     reuse = control_residuals is not None
     if reuse and return_control_residuals:
         raise ValueError("pass either control_residuals or "
@@ -282,7 +301,8 @@ def unigen_flux_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     else:
         pre = preprocess_moe(ctrl, cfg, h, enc, condition, pooled,
                              condition_pooled, timestep, guidance, img_ids,
-                             txt_ids, condition_ids, training=training)
+                             txt_ids, condition_ids, training=training,
+                             rts_uniform=rts_uniform)
         _, cn_out = flux_double_block(index_params(ctrl["double_blocks"], 0),
                                       pre.moe_hidden, pre.control_enc,
                                       pre.block_temb, rope_cn_double,
@@ -370,7 +390,6 @@ class UniGenFlux(nn.Module):
     def __init__(self, cfg: UniGenConfig, params: dict, *, device=None,
                  dtype=torch.bfloat16):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype

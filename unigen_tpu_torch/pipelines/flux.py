@@ -64,24 +64,47 @@ class UniGenFluxPipeline:
                 setattr(self, name, tree_map(lambda t: t.to(self.device), tree))
         self._prompt_cache = caching.PromptLRU(self.prompt_cache_size)
         self.last_cache_refreshes = None
+        self._lora = None               # models/lora.LoraSwitcher when loaded
 
-    # ------------------------------------------------------------ not ported yet
+    # ------------------------------------------------------------ LoRA experts
 
     def load_lora(self, adapters_or_dir, adapter_names=None) -> None:
-        raise NotImplementedError("LoRA condition experts wait for the port of "
-                                  "models/lora.py (the training-remainder slice)")
+        """Attach per-condition LoRA experts (the reference's
+        lora_switching_module and load_model_hook): a directory in the
+        reference's per-adapter layout ({dir}/{name}/pytorch_lora_weights.
+        safetensors) or an adapters dict of models/lora. Works on fp and
+        quantized serving trees (dequant, add, requant)."""
+        from unigen_tpu_torch.models.lora import LoraSwitcher
+        if isinstance(adapters_or_dir, str):
+            from unigen_tpu_torch.io import torch_bridge as tb
+            adapters = tb.load_lora_adapters(adapters_or_dir, self.params, adapter_names,
+                                             dtype=torch.float32, device=self.device)
+        else:
+            adapters = adapters_or_dir
+        self._lora = LoraSwitcher(adapters, self.params)
 
     def set_condition_adapter(self, names, scale: float = 1.0) -> None:
-        raise NotImplementedError("LoRA condition experts wait for the port of "
-                                  "models/lora.py (the training-remainder slice)")
+        """Fold exactly ``names`` (a name, a list, or None to disable all)
+        into the live weights, the reference's run-time PEFT scaling flips
+        made a refold; shapes and dtypes never change."""
+        if self._lora is None:
+            raise ValueError("call load_lora() first")
+        self.params = self._lora.switch(self.params, names, scale)
 
     def shard(self, mesh) -> None:
         raise NotImplementedError("multi-card serving waits for the port of "
                                   "unigen_tpu/parallel (the parallel slice)")
 
     def _auto_switch(self, condition_prompt) -> None:
-        """Per-call expert selection by condition type: a no-op while no
-        LoRA is loaded, and none can be yet."""
+        """Per-call expert selection by condition type: one condition type
+        with an adapter of its name selects it; unknown types and mixed
+        batches leave the current fold as it is."""
+        if self._lora is None:
+            return
+        names = ([condition_prompt] if isinstance(condition_prompt, str)
+                 else list(dict.fromkeys(condition_prompt)))
+        if len(names) == 1 and names[0] in self._lora.adapters:
+            self.set_condition_adapter(names[0])
 
     # ------------------------------------------------------------ text
 
@@ -365,7 +388,13 @@ class UniGenFluxPipeline:
         """Joint control by several conditions: one pooled embedding and one
         control image per condition, stacked on a leading axis; ``kw`` are
         ``generate``'s other arguments (subject offsets per condition by
-        default)."""
+        default). With LoRA experts loaded, every present condition's adapter
+        is folded in at once (the reference's enable_lora takes a list)."""
+        if self._lora is not None:
+            present = [cp for cp in dict.fromkeys(condition_prompts)
+                       if cp in self._lora.adapters]
+            if present:
+                self.set_condition_adapter(present)
         embeds, pooled = self.encode_prompt(prompt, max_sequence_length)
         cond_pooled = torch.stack([self.encode_condition_prompt(cp)
                                    for cp in condition_prompts])

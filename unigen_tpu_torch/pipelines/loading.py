@@ -16,8 +16,8 @@ subfolder holds one; a missing package or directory leaves them None, and
 the pipeline then serves embeddings passed by the caller. Every loader
 takes ``device`` (CUDA unless "cpu" is named) and ``dtype``.
 
-``load_sana_pipeline`` and LoRA loading (``lora_dir``) wait for their
-slices of the port.
+``load_sana_pipeline`` waits for its slice of the port (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -175,10 +175,11 @@ def load_flux_pipeline(root: str, *, condition_types: Sequence[str] = ("canny",)
     transformer tree (``io/serving_cache``); a valid cache is read instead
     of the checkpoint and the quantization, a missing one is written after
     the first quantization, and a cache of another topology or policy
-    refuses to load."""
-    if lora_dir:
-        raise NotImplementedError("LoRA condition experts wait for the port of "
-                                  "models/lora.py (the training-remainder slice)")
+    refuses to load. ``lora_dir``: per-condition LoRA experts in the
+    reference's per-adapter layout ({lora_dir}/{adapter}/
+    pytorch_lora_weights.safetensors, hook.py:48-76), all of them or
+    ``lora_adapter_names``, attached to the (possibly quantized) tree
+    (``UniGenFluxPipeline.load_lora``)."""
     dev = resolve_device(device)
     flux = flux_backbone_from_json(_subcfg(root, "transformer"))
     cfg = cfg_lib.UniGenConfig(
@@ -242,12 +243,15 @@ def load_flux_pipeline(root: str, *, condition_types: Sequence[str] = ("canny",)
 
     tokenizer = _tokenizer("CLIPTokenizer", os.path.join(root, "tokenizer"))
     tokenizer_2 = _tokenizer("T5TokenizerFast", os.path.join(root, "tokenizer_2"))
-    return UniGenFluxPipeline(
+    pipe = UniGenFluxPipeline(
         cfg=cfg, params={"base": base, "control": control},
         vae_cfg=vae_cfg, vae_params=vae_params, clip_cfg=clip_cfg,
         clip_params=clip_params, t5_cfg=t5_cfg, t5_params=t5_params,
         scheduler=scheduler, tokenizer=tokenizer, tokenizer_2=tokenizer_2,
         dtype=dtype, device=dev)
+    if lora_dir:
+        pipe.load_lora(lora_dir, list(lora_adapter_names) if lora_adapter_names else None)
+    return pipe
 
 
 def sd3_backbone_from_json(tcfg: dict) -> cfg_lib.SD3BackboneConfig:

@@ -53,6 +53,7 @@ tick), so admission stays within one tick.
 from __future__ import annotations
 
 import collections
+import functools
 import heapq
 import itertools
 import logging
@@ -84,6 +85,27 @@ def _require(ok: bool, msg: str = ""):
     same messages (and raised under ``python -O`` too)."""
     if not ok:
         raise AssertionError(msg)
+
+
+# The VAE ends of a server, bound to its VAE tree by ``functools.partial``:
+# a bound method or a lambda over the server would make a reference cycle,
+# and a closed server would then hold its trees until the collector runs.
+
+def _flux_encode(vae_params, vae_cfg, dtype, px):
+    return pack_latents(vae_lib.vae_encode(vae_params, vae_cfg, px)).to(dtype)
+
+
+def _flux_decode(vae_params, vae_cfg, lh, lw, lat):
+    return vae_lib.vae_decode(vae_params, vae_cfg,
+                              unpack_latents(lat.to(torch.float32), lh, lw)).clamp(-1, 1)
+
+
+def _sd3_encode(vae_params, vae_cfg, dtype, px):
+    return vae_lib.vae_encode(vae_params, vae_cfg, px).to(dtype)
+
+
+def _sd3_decode(vae_params, vae_cfg, lat):
+    return vae_lib.vae_decode(vae_params, vae_cfg, lat.to(torch.float32)).clamp(-1, 1)
 
 
 class AdmissionRejected(RuntimeError):
@@ -203,11 +225,10 @@ class StepServer:
             lat_shape = (B, self.s_img, bb.in_channels)
             self._img_ids = prepare_latent_image_ids(lh // 2, lw // 2, device=dev)
             sch = scheduler or scheduling.FlowMatchConfig(shift=1.0)
-            self._encode = lambda px: pack_latents(vae_lib.vae_encode(
-                self.vae_params, vae_cfg, px)).to(dtype)
-            self._decode = lambda lat: vae_lib.vae_decode(
-                self.vae_params, vae_cfg,
-                unpack_latents(lat.to(torch.float32), lh, lw)).clamp(-1, 1)
+            self._encode = functools.partial(_flux_encode, self.vae_params,
+                                             vae_cfg, dtype)
+            self._decode = functools.partial(_flux_decode, self.vae_params,
+                                             vae_cfg, lh, lw)
         elif self.family == "sd3":
             bb = cfg.sd3
             _require(cfg.control.use_encoder_hidden_states,
@@ -219,10 +240,10 @@ class StepServer:
             lat_shape = (B, bb.in_channels, lh, lw)
             self._img_ids = None
             sch = scheduler or scheduling.FlowMatchConfig(shift=3.0)
-            self._encode = lambda px: vae_lib.vae_encode(
-                self.vae_params, vae_cfg, px).to(dtype)
-            self._decode = lambda lat: vae_lib.vae_decode(
-                self.vae_params, vae_cfg, lat.to(torch.float32)).clamp(-1, 1)
+            self._encode = functools.partial(_sd3_encode, self.vae_params,
+                                             vae_cfg, dtype)
+            self._decode = functools.partial(_sd3_decode, self.vae_params,
+                                             vae_cfg)
         else:
             raise NotImplementedError(
                 "the sana StepServer family waits for the port of models/sana.py "
@@ -239,7 +260,6 @@ class StepServer:
         self._sched_cache: Dict[int, tuple] = {}
         self._sigmas, self._timesteps = self._schedule_for(num_inference_steps)
         self._guidance_scale = guidance_scale
-        self._fwd = self._family_fwd()
         self._txt_ids = None
 
         def zeros(shape):
@@ -428,51 +448,43 @@ class StepServer:
         return tree_map(lambda r: r.transpose(1, 2).reshape(
             (r.shape[0], r.shape[1] * 2) + tuple(r.shape[3:])), rows)
 
-    def _family_fwd(self):
+    def _fwd(self, lat, cond, embeds, pooled, cpool, t_now, scale, g, **kw):
         """The family forward over gathered rows, shared by the exact step,
-        the model-cache refresh and the hybrid full/base forwards:
-        ``call(lat, cond, embeds, pooled, cpool, t_now, scale, g, **kw)`` ->
-        the forward's (pred, losses, outs). ``t_now``, ``scale`` and ``g``
-        are float32 [m] vectors on the device: flux feeds ``g`` to the
-        guidance embedder; sd3 runs the duplicated 2m CFG batch and returns
-        the guided prediction ``neg + g * (pos - neg)``, so everything
+        the model-cache refresh and the hybrid full/base forwards -> the
+        forward's (pred, losses, outs). ``t_now``, ``scale`` and ``g`` are
+        float32 [m] vectors on the device: flux feeds ``g`` to the guidance
+        embedder; sd3 runs the duplicated 2m CFG batch and returns the
+        guided prediction ``neg + g * (pos - neg)``, so everything
         downstream (Euler, caches) sees one prediction per slot."""
         cfg, dtype = self.cfg, self.dtype
         if self.family == "flux":
-            use_guidance = cfg.flux.guidance_embeds
-            img_ids = self._img_ids
+            if self._txt_ids is None or self._txt_ids.shape[0] != embeds.shape[1]:
+                self._txt_ids = torch.zeros(embeds.shape[1], 3, device=self.device)
+            return unigen_flux_forward(
+                self.params, cfg, lat, cond, embeds, pooled, cpool,
+                t_now.to(dtype), self._img_ids, self._txt_ids, self._img_ids,
+                g.to(dtype) if cfg.flux.guidance_embeds else None,
+                # in the activation dtype: an fp32 per-sample scale would
+                # promote the bf16 residuals
+                conditioning_scale=scale[:, None, None].to(dtype), **kw)
 
-            def call(lat, cond, embeds, pooled, cpool, t_now, scale, g, **kw):
-                if self._txt_ids is None or self._txt_ids.shape[0] != embeds.shape[1]:
-                    self._txt_ids = torch.zeros(embeds.shape[1], 3, device=self.device)
-                return unigen_flux_forward(
-                    self.params, cfg, lat, cond, embeds, pooled, cpool,
-                    t_now.to(dtype), img_ids, self._txt_ids, img_ids,
-                    g.to(dtype) if use_guidance else None,
-                    # in the activation dtype: an fp32 per-sample scale would
-                    # promote the bf16 residuals
-                    conditioning_scale=scale[:, None, None].to(dtype), **kw)
-            return call
-
-        def call(lat, cond, embeds, pooled, cpool, t_now, scale, g, **kw):
-            # the (neg, pos) duplication inside the call: embeds/pooled carry
-            # the stacked pair on axis 1, lat/cond/cond_pooled serve both
-            def two(t):
-                return torch.cat([t, t])
-            if "control_residuals" in kw:
-                kw["control_residuals"] = self._res_unpack(kw["control_residuals"])
-            pred2, losses, outs = unigen_sd3_forward(
-                self.params, cfg, two(lat), two(cond),
-                torch.cat([embeds[:, 0], embeds[:, 1]]),
-                torch.cat([pooled[:, 0], pooled[:, 1]]), two(cpool),
-                two(t_now).to(dtype),
-                conditioning_scale=two(scale)[:, None, None].to(dtype), **kw)
-            neg, pos = pred2.chunk(2)
-            pred = neg + self._bsig(g, pred2).to(pred2.dtype) * (pos - neg)
-            if "control_residuals" in outs:
-                outs["control_residuals"] = self._res_pack(outs["control_residuals"])
-            return pred, losses, outs
-        return call
+        # the (neg, pos) duplication inside the call: embeds/pooled carry
+        # the stacked pair on axis 1, lat/cond/cond_pooled serve both
+        def two(t):
+            return torch.cat([t, t])
+        if "control_residuals" in kw:
+            kw["control_residuals"] = self._res_unpack(kw["control_residuals"])
+        pred2, losses, outs = unigen_sd3_forward(
+            self.params, cfg, two(lat), two(cond),
+            torch.cat([embeds[:, 0], embeds[:, 1]]),
+            torch.cat([pooled[:, 0], pooled[:, 1]]), two(cpool),
+            two(t_now).to(dtype),
+            conditioning_scale=two(scale)[:, None, None].to(dtype), **kw)
+        neg, pos = pred2.chunk(2)
+        pred = neg + self._bsig(g, pred2).to(pred2.dtype) * (pos - neg)
+        if "control_residuals" in outs:
+            outs["control_residuals"] = self._res_pack(outs["control_residuals"])
+        return pred, losses, outs
 
     def _state(self) -> dict:
         """The state tensors a tick reads (snapshot under the lock)."""

@@ -8,14 +8,22 @@ to fp32, as the reference does (train.py:346); the frozen base keeps its
 dtype. The JAX forward then needs fp32 activations (with bf16 ones its
 first fp32 bias add changes a ``lax.scan`` carry's dtype, which it refuses);
 the port takes either and promotes as jnp does, and its attention kernels
-take fp32 activations on the card. There is no mesh and no checkpointing
-yet: ``mesh``, ``work_dir``, ``save`` and ``maybe_resume`` wait for the
-ports of ``parallel/`` and ``train/checkpoint.py``.
+take fp32 activations on the card.
+
+With a ``work_dir`` the Trainer checkpoints every ``checkpointing_steps``
+and at the end of ``train`` (``train/checkpoint.py``), and ``maybe_resume``
+continues from ``latest``, the random generator's state included, so a
+resumed run draws what an uninterrupted one would. In LoRA mode every save
+also exports the adapter in the reference's per-adapter layout
+(``{work_dir}/lora_adapters/{name}/pytorch_lora_weights.safetensors``).
+There is no mesh yet: ``mesh`` waits for the port of ``parallel/``
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from unigen_tpu_torch.config import TrainConfig, UniGenConfig
+from unigen_tpu_torch.train import checkpoint as ckpt_lib
 from unigen_tpu_torch.train.train_step import (TrainState, init_train_state,
                                                make_train_step)
 from unigen_tpu_torch.utils import resolve_device, tree_map
@@ -43,11 +52,9 @@ class Trainer:
         to ``device`` (CUDA unless "cpu" is named)."""
         if mesh is not None:
             raise NotImplementedError("sharded training waits for the port of "
-                                      "unigen_tpu/parallel")
-        if work_dir is not None:
-            raise NotImplementedError("checkpoints (work_dir) wait for the port "
-                                      "of unigen_tpu/train/checkpoint.py")
+                                      "unigen_tpu/parallel (ROADMAP Queue 1 item 8)")
         self.ucfg, self.tcfg = ucfg, tcfg
+        self.work_dir = work_dir
         self.encode_text = encode_text
         self.encode_images = encode_images
         self.device = resolve_device(device)
@@ -64,12 +71,46 @@ class Trainer:
         self._generator = torch.Generator(device=dev).manual_seed(tcfg.seed)
 
     def maybe_resume(self) -> bool:
-        raise NotImplementedError("resuming waits for the port of "
-                                  "unigen_tpu/train/checkpoint.py")
+        """Continue from ``{work_dir}/latest``. A checkpoint that fails to
+        load, or does not match the live state, logs a warning and the run
+        starts fresh (the reference catches load errors the same way,
+        train.py:473-475). -> whether a checkpoint was restored."""
+        if not self.work_dir:
+            return False
+        try:
+            restored = ckpt_lib.restore_train_state(
+                self.work_dir, self.state.control, self.state.opt_state,
+                map_location=self.device)
+        except Exception as e:
+            logger.warning("checkpoint restore failed (%s); starting fresh", e)
+            return False
+        if restored is None:
+            return False
+        control, opt_state, meta = restored
+        self.state = TrainState(control=control, opt_state=opt_state,
+                                step=int(meta["step"]))
+        self.global_step = int(meta["step"])
+        if "generator_state" in meta:
+            self._generator.set_state(meta["generator_state"])
+        logger.info("resumed from step %d", self.global_step)
+        return True
 
     def save(self) -> None:
-        raise NotImplementedError("checkpoints wait for the port of "
-                                  "unigen_tpu/train/checkpoint.py")
+        """Checkpoint the trainable tree, the optimizer and the generator at
+        ``global_step``; in LoRA mode also export the adapter in the
+        reference's per-adapter layout (hook.py:29-45), loadable at any
+        point by ``io/torch_bridge.load_lora_adapters``."""
+        ckpt_lib.save_train_state(self.work_dir, self.global_step,
+                                  self.state.control, self.state.opt_state,
+                                  generator_state=self._generator.get_state())
+        if self.tcfg.lora_rank > 0:
+            from unigen_tpu_torch.io.torch_bridge import export_lora_adapters_reference
+            out = os.path.join(self.work_dir, "lora_adapters")
+            export_lora_adapters_reference(
+                {self.tcfg.lora_adapter_name: self.state.control}, out)
+            logger.info("exported LoRA adapter '%s' to %s",
+                        self.tcfg.lora_adapter_name, out)
+        logger.info("saved checkpoint at step %d", self.global_step)
 
     def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
@@ -110,6 +151,11 @@ class Trainer:
                 last["s_per_it"] = (time.time() - t0) / log_every
                 log_step_metrics(logger, self.global_step, metrics)
                 t0 = time.time()
+            if (self.work_dir and self.tcfg.checkpointing_steps
+                    and self.global_step % self.tcfg.checkpointing_steps == 0):
+                self.save()
             if self.global_step >= self.tcfg.max_train_steps:
                 break
+        if self.work_dir:
+            self.save()
         return last

@@ -12,8 +12,13 @@ state across).
 
 The random draws come from a ``torch.Generator``; ``Draws`` passes them in
 as tensors instead, so the tests can feed the JAX package's own draws. The
-MoE draws nothing here: its top-1 routing without random token selection
-(the only routing the port trains) is deterministic.
+MoE draws only for random token selection (``use_rts`` with top-1 routing,
+the reference's gate): one uniform [tokens, E] per step.
+
+LoRA mode (``lora_rank > 0``) trains rank-r factors over the frozen control
+branch: the step folds them into the frozen weights inside the loss
+(``models/lora.fold_for_training``), so the optimizer state and the
+checkpoints hold only the factors.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import numpy as np
 import torch
 
 from unigen_tpu_torch.config import TrainConfig, UniGenConfig
+from unigen_tpu_torch.models import lora as lora_lib
+from unigen_tpu_torch.models.moe import rts_tokens
 from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
 from unigen_tpu_torch.ops import quant
 from unigen_tpu_torch.ops.packing import (pack_latents, prepare_latent_image_ids,
@@ -177,6 +184,12 @@ class AdamW:
             acc_grads=tree_map(torch.zeros_like, acc))
 
 
+def make_optimizer(cfg: TrainConfig) -> AdamW:
+    """The optimizer of ``cfg``: clip + AdamW, behind MultiSteps when it
+    accumulates (``unigen_tpu/train/train_step.make_optimizer``)."""
+    return AdamW(cfg)
+
+
 def apply_updates(params: Any, updates: Optional[Any]) -> Any:
     """optax.apply_updates: p + u in the parameter's dtype."""
     if updates is None:
@@ -193,26 +206,42 @@ class TrainState(NamedTuple):
 
 
 class Draws(NamedTuple):
-    """The step's random draws: noise like the latents, u [B] fp32 in (0, 1)."""
+    """The step's random draws: noise like the latents, u [B] fp32 in (0, 1),
+    and under random token selection the MoE's uniform [tokens, E]."""
     noise: torch.Tensor
     u: torch.Tensor
+    moe_u: Optional[torch.Tensor] = None
 
 
 def init_train_state(control_params: Any, cfg: TrainConfig) -> TrainState:
     return TrainState(control=control_params,
-                      opt_state=AdamW(cfg).init(control_params), step=0)
+                      opt_state=make_optimizer(cfg).init(control_params), step=0)
+
+
+def rts_draw_shape(ucfg: UniGenConfig, latents_shape) -> Optional[Tuple[int, int]]:
+    """The MoE's uniform draw of a training step on latents [B, C, H, W],
+    or None when its routing draws nothing (no ``use_rts``, or top-2)."""
+    moe = ucfg.control.moe
+    if not moe.use_rts or moe.top_k != 1:
+        return None
+    b, _, h, w = latents_shape
+    return (rts_tokens(ucfg.control, b, (h // 2) * (w // 2)),
+            moe.num_experts(ucfg.condition_nums))
 
 
 def draw(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
-         weighting_scheme: str = "none") -> Draws:
-    """Noise in the latents' dtype and the timestep density u, from
-    ``generator`` (on the latents' device)."""
+         weighting_scheme: str = "none", rts_shape=None) -> Draws:
+    """The timestep density u, noise in the latents' dtype and, for a
+    ``rts_shape``, the MoE's uniform, in that order from ``generator`` (on
+    the latents' device)."""
     lat = batch["latents"]
     u = scheduling.sample_timestep_density(generator, lat.shape[0],
                                            weighting_scheme, device=lat.device)
     noise = torch.randn(lat.shape, generator=generator, dtype=lat.dtype,
                         device=lat.device)
-    return Draws(noise, u)
+    moe_u = (None if rts_shape is None else
+             torch.rand(rts_shape, generator=generator, device=lat.device))
+    return Draws(noise, u, moe_u)
 
 
 def flow_matching_loss(pred_packed: torch.Tensor, latents: torch.Tensor,
@@ -239,10 +268,10 @@ def make_loss_builder(ucfg: UniGenConfig, tcfg: TrainConfig, *,
     base_params is the frozen base tree, or {"base", "control_frozen"} for
     the single-card fine-tune split (``ops/quant.split_trainable``): the
     control tree is then merged from the trainable and frozen halves inside
-    the loss."""
-    if tcfg.lora_rank > 0:
-        raise NotImplementedError("LoRA training (lora_rank > 0) waits for "
-                                  "models/lora.py in a later slice of the port")
+    the loss. In LoRA mode it must be {"base", "control_frozen"} with the
+    whole frozen control tree (fp or quantized), and the trainable tree is
+    an adapter {dotted path: {"a", "b"}} rooted at {"base", "control"}."""
+    lora_mode = tcfg.lora_rank > 0
     sigma_table = torch.from_numpy(scheduling.training_sigmas(
         scheduling.FlowMatchConfig(shift=1.0)))
     n_train = sigma_table.shape[0]
@@ -270,20 +299,30 @@ def make_loss_builder(ucfg: UniGenConfig, tcfg: TrainConfig, *,
         txt_ids = torch.zeros(batch["prompt_embeds"].shape[1], 3, device=dev)
         guidance = (torch.full((b,), tcfg.guidance_scale, dtype=latents.dtype,
                                device=dev) if use_guidance else None)
-        split = isinstance(base_params, dict) and "control_frozen" in base_params
-        base = base_params["base"] if split else base_params
+        has_frozen = isinstance(base_params, dict) and "control_frozen" in base_params
+        if lora_mode and not has_frozen:
+            raise ValueError("LoRA mode (lora_rank > 0) needs base_params="
+                             "{'base', 'control_frozen'}")
+        split = has_frozen and not lora_mode
+        base = base_params["base"] if has_frozen else base_params
 
         def loss_fn(control):
+            base_t = base
             if split:
                 control = quant.merge_split(control, base_params["control_frozen"])
+            if lora_mode:
+                folded = lora_lib.fold_for_training(
+                    {"base": base, "control": base_params["control_frozen"]},
+                    control, scale=tcfg.lora_scale)
+                base_t, control = folded["base"], folded["control"]
             pred, add_losses, add_outputs = unigen_flux_forward(
-                {"base": base, "control": control}, ucfg,
+                {"base": base_t, "control": control}, ucfg,
                 hidden=packed_noisy, condition=packed_cond,
                 encoder=batch["prompt_embeds"], pooled=batch["pooled"],
                 condition_pooled=batch["condition_pooled"],
                 timestep=sigmas, img_ids=img_ids, txt_ids=txt_ids,
                 condition_ids=cond_ids, guidance=guidance,
-                remat=tcfg.remat, training=True)
+                remat=tcfg.remat, training=True, rts_uniform=draws.moe_u)
             flow = flow_matching_loss(pred, latents, draws.noise, sigmas,
                                       tcfg.weighting_scheme)
             total = flow + sum(add_losses.values())
@@ -314,7 +353,7 @@ def make_train_step(ucfg: UniGenConfig, tcfg: TrainConfig, *,
     product, ``ops/quant.bwd_dx``). Metrics stay on the device: step_loss,
     flow_loss, moe_loss, grad_norm (of this micro-step's gradients), lr (at
     the outer step, as the JAX step reads it) and expert_counts."""
-    tx = AdamW(tcfg)
+    tx = make_optimizer(tcfg)
     schedule = lr_schedule(tcfg)
     builder = make_loss_builder(ucfg, tcfg, guidance_embeds=guidance_embeds)
 
@@ -322,7 +361,8 @@ def make_train_step(ucfg: UniGenConfig, tcfg: TrainConfig, *,
                    generator: Optional[torch.Generator] = None, *,
                    draws: Optional[Draws] = None):
         if draws is None:
-            draws = draw(batch, generator, tcfg.weighting_scheme)
+            draws = draw(batch, generator, tcfg.weighting_scheme,
+                         rts_draw_shape(ucfg, batch["latents"].shape))
         loss_fn = builder(base_params, batch, draws)
         control = tree_map(lambda x: x.detach().requires_grad_(
             x.is_floating_point()), state.control)

@@ -6,10 +6,23 @@ stacked blocks carry a leading block axis and are indexed, not copied.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Iterator, Tuple
 
 import torch
 import torch.utils.checkpoint
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: the outputs of the weight
+    products (``mm``, ``addmm``, the int8 ``_int_mm``) are saved; batched
+    products (``bmm``/``baddbmm``: attention-sized einsums with batch dims)
+    and everything elementwise are recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default, aten._int_mm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def remat_wrap(fn: Callable, remat) -> Callable:
@@ -18,23 +31,27 @@ def remat_wrap(fn: Callable, remat) -> Callable:
     False/None/"none" runs ``fn`` as it is. True/"full" checkpoints each call
     (``torch.utils.checkpoint``, non-reentrant): only the body's inputs
     survive the forward and the whole body runs again in the backward, the
-    memory floor. The body draws no random numbers, so the RNG state is not
-    saved. "dots" (save the weight products, recompute the rest) waits for a
-    later slice."""
+    memory floor. "dots" checkpoints selectively (``_dots_policy``): the
+    weight products' outputs are saved and the rest runs again. A CUDA
+    kernel of the port is a ctypes call that the dispatcher does not see,
+    so both policies run it again, as JAX's recomputes a ``pallas_call``.
+    The body draws no random numbers, so the RNG state is not saved."""
     if remat in (False, None, "none"):
         return fn
-    if remat == "dots":
-        raise NotImplementedError('remat="dots" waits for a later slice of the '
-                                  'port; use "full" or "none"')
-    if remat not in (True, "full"):
+    if remat not in (True, "full", "dots"):
         raise ValueError(f"remat must be bool, 'none', 'full' or 'dots'; "
                          f"got {remat!r}")
+    kw = {}
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
 
     def checkpointed(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
     return checkpointed
 
 
