@@ -126,7 +126,12 @@ Phases, in order; any failure exits non-zero:
      kernel (launches equal expected_sd3_launches), the sd3_path_check
      line holds each call of one more forward against its plain version and
      that forward against one with the plain versions, and sd3_profile
-     gives the device time by kernel group.
+     gives the device time by kernel group. sd3_base_forward_check runs the
+     UniGenBase forward (unigen_base_forward) of a full-width base-variant
+     tree at b=2, then a capture and its replay: every rope-free call
+     against its plain version, the calls against
+     expected_sd3_base_launches, the capture and the replay bit for bit
+     equal to the plain forward.
   9. sd3_1024: one b=1 request of the same model at 1024^2, 4 steps
      (4429, 4096, 8192 and 8525 keys): launch counts and the path check.
   8b. stepserve_sd3 (after 9, on the same tree): the StepServer with
@@ -174,6 +179,32 @@ Phases, in order; any failure exits non-zero:
      checkpoint bytes and save and resume seconds); then
      load_flux_pipeline(..., lora_dir=...) serves one request with the
      adapter. The checkpoint directories are removed at the end.
+  9 sana (after 4f): the full-width SANA family (Sana_1600M_1024px's
+     transformer with the default control branch, W4A8 by the loader's
+     policy: int4 base, int8 adapter; Gemma-2-2B and CLIP-L W4A8; the fp32
+     DC-AE f32c32; random from the seed) through UniGenSanaPipeline at
+     1024^2, 20 steps: four b=1 requests with 300-token padded Gemma
+     prompts in two b=2 batches per mode of SANA_PIPE_MODES (exact,
+     "balanced", "fast"), a "sana_pipeline" line each (img/s, stage_ms,
+     step kinds, residual bytes, peak, the TF32 switches), launches equal
+     to expected_sana_pipeline_launches plus each Gemma and CLIP encode's;
+     sana_path_check (every W4A8 and quantization call of a b=2 forward
+     and of a Gemma encode against its plain version) and sana_profile
+     (device time by group: linear attention, cross-attention, depthwise
+     conv and the DC-AE by profiler range, then W4A8, the quantization,
+     library GEMMs such as W8A8's _int_mm, elementwise).
+  9b stepserve_sana: StepServer(family sana) on the same trees with
+     per-sample routing, 4 slots at 1024^2, exact and the hybrid (4, 2),
+     the fields of 4c; stepserve_sana_check holds the served final latents
+     against generate at the same shapes, at the deepest of SANA_DEPTHS
+     whose random stream stays finite, within STEPSERVE_REL_L2.
+  9c sana_load: a random full-size SANA directory under build/checkpoints
+     (transformer, Gemma-2 in two shards, CLIP-L, the native DC-AE; about
+     10 GB after a free-space check) loaded by load_sana_pipeline(bf16,
+     w4a8, w4a8 text); sana_load_check (the loaded trees bit for bit
+     against the undonated quantization of a quantize=None load) and two
+     requests through the pipeline's __call__; the directory is removed
+     whatever happens.
  10. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
@@ -237,6 +268,17 @@ W4A8_LOAD_CASES = [(4096, 1536, 1536), (4096, 1536, 6144), (4096, 6144, 1536),
                    (512, 4096, 4096), (512, 4096, 10240), (512, 10240, 4096),
                    (77, 768, 768), (77, 768, 3072), (77, 3072, 768), (1, 768, 768),
                    (77, 1280, 1280), (77, 1280, 5120), (77, 5120, 1280), (1, 1280, 1280)]
+# the SANA paths' shapes (phase 9): the W4A8 base at b=2, 1024^2 (2048
+# image rows at 2240 wide, the GLUMBConv's 2240 -> 11200 and 5600 -> 2240,
+# 600 caption rows, 2 time-embedding rows), Gemma-2-2B at one and two
+# 300-token prompts
+W4A8_SANA_CASES = [(2048, 2240, 2240), (2048, 2240, 11200), (2048, 5600, 2240),
+                   (600, 2240, 2240), (600, 2304, 2240), (2, 2240, 2240),
+                   (2, 2240, 13440),
+                   (300, 2304, 2048), (300, 2304, 1024), (300, 2048, 2304),
+                   (300, 2304, 9216), (300, 9216, 2304),
+                   (600, 2304, 2048), (600, 2304, 1024), (600, 2048, 2304),
+                   (600, 2304, 9216), (600, 9216, 2304)]
 W4A8_REP = (2048, 3072, 3072)         # the kernels line's shape
 # the activation quantization at the path's (M, K) in bf16, and one fp32 row
 # (the Trainer's activations)
@@ -245,6 +287,9 @@ QUANT_CASES = [(2, 3072, "bfloat16"), (1024, 3072, "bfloat16"), (2048, 3072, "bf
                (2048, 12288, "bfloat16"), (3072, 15360, "bfloat16"),
                (2048, 3072, "float32"),
                (4, 3072, "bfloat16"), (4096, 3072, "bfloat16"), (6144, 15360, "bfloat16")]
+QUANT_SANA_CASES = [(2048, 2240, "bfloat16"), (2048, 5600, "bfloat16"),
+                    (600, 2240, "bfloat16"), (600, 2304, "bfloat16"),
+                    (300, 2304, "bfloat16"), (300, 9216, "bfloat16")]
 QUANT_REP = (2048, 3072, "bfloat16")
 # the rope-free kernel at the SD3 paths' shapes (B, H, Sq, Skv, D): 512^2 at
 # serving batch 4 (2 requests x CFG), then the 1024^2 lengths at batch 2
@@ -347,6 +392,23 @@ SD3_PIPE_MODES = [
     ("fast", dict(quality_profile="fast")),            # model cache k=4, order 1
     ("control_interval_2_cfg_cache", dict(control_cache_interval=2, cfg_cache=True))]
 LOAD_FLUX_DEPTH = REDUCED_DEPTHS[1]
+# 9: the SANA family at 1024^2, 20 steps, a 300-token Gemma prompt: four
+# b=1 requests in two b=2 batches through the pipeline in each mode; 9b the
+# StepServer (4 slots) in each of its modes, 8 requests from threads, and
+# the server-vs-pipeline check at SANA_CHECK_STEPS steps at the deepest of
+# SANA_DEPTHS whose stream stays finite; 9c the loaded directory's requests
+SANA_RES, SANA_STEPS, SANA_TXT = 1024, 20, 300
+SANA_PIPE_MODES = [
+    ("exact", {}),
+    ("balanced", dict(quality_profile="balanced")),    # hybrid c=4, m=2
+    ("fast", dict(quality_profile="fast"))]            # model cache k=4, order 1
+SANA_STEPSERVE_MODES = [
+    ("exact", {}),
+    ("hybrid_4_2", dict(control_cache_interval=4, model_cache_interval=2))]
+SANA_STEPSERVE_REQUESTS = 2 * STEPSERVE_SLOTS
+SANA_CHECK_STEPS = 4
+SANA_DEPTHS = (20, 10, 4)
+SANA_LOAD_STEPS = 4
 # 6b: LoRA fine-tuning over phase 4's tree; 4f: the training entry point on
 # 4e's directory (micro-steps, the save step, the resumed run's end)
 LORA_RANK = 16
@@ -1113,7 +1175,9 @@ def phase_kernels(torch, dev, seed, pqm=None):
     rows["w4a8_matmul"] = [w4a8_row(torch, dev, g, *case, pqm=pqm)
                            for case in W4A8_CASES + W4A8_STEPSERVE_CASES]
     rows["w4a8_matmul"] += [w4a8_row(torch, dev, g, *case) for case in W4A8_LOAD_CASES]
-    rows["quantize_act"] = [quantize_row(torch, dev, g, *case) for case in QUANT_CASES]
+    rows["w4a8_matmul"] += [w4a8_row(torch, dev, g, *case) for case in W4A8_SANA_CASES]
+    rows["quantize_act"] = [quantize_row(torch, dev, g, *case)
+                            for case in QUANT_CASES + QUANT_SANA_CASES]
     rows.update(backward_rows(torch, dev, g, ids))
     rows.update(norope_backward_rows(torch, dev, g))
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
@@ -1679,7 +1743,8 @@ def phase_slice(torch, dev):
 class SeededTokenizer:
     """A tokenizer's call signature (the card host has no transformers):
     each prompt's ids are drawn from a generator seeded with ``seed`` and
-    the prompt's CRC, a few per word, then ``eos``, then 0 padding."""
+    the prompt's CRC, a few per word, then ``eos``, then 0 padding; the
+    attention mask is 1 up to the eos."""
 
     def __init__(self, vocab: int, eos: int, seed: int):
         self.vocab, self.eos, self.seed = vocab, eos, seed
@@ -1698,6 +1763,8 @@ class SeededTokenizer:
 
         class Out:
             input_ids = ids
+            attention_mask = (np.arange(max_length)[None, :]
+                              <= np.argmax(ids == self.eos, axis=1)[:, None]).astype(np.int32)
         return Out()
 
 
@@ -4079,10 +4146,10 @@ def sd3_quantized_calls(params, cfg, leaf: str, replay: bool = False) -> int:
 
 
 def text_quantized_calls(tree, leaf: str) -> int:
-    """Calls of the quantized linears of one CLIP or T5 encode (a stacked
-    layer leaf once per layer)."""
+    """Calls of the quantized linears of one CLIP, T5 or Gemma encode (a
+    stacked layer leaf once per layer; Gemma's layers are a list)."""
     from unigen_tpu_torch.utils import tree_leaves_with_path
-    return sum(t.shape[0] if path[0] == "layers" else 1
+    return sum(t.shape[0] if path[0] == "layers" and t.dim() == 3 else 1
                for path, t in tree_leaves_with_path(tree) if path[-1] == leaf)
 
 
@@ -4228,7 +4295,8 @@ def load_timer(torch, stats):
     patches += [(mod, n, converter(n, getattr(mod, n))) for mod, n in (
         (tb, "load_flux_transformer"), (tb, "load_unigen_adapter"), (tb, "load_clip_text"),
         (tb, "load_t5_encoder"), (tb, "load_vae"), (tb3, "load_sd3_transformer"),
-        (tb3, "load_sd3_unigen_adapter"))]
+        (tb3, "load_sd3_unigen_adapter"), (tb, "load_gemma_text"),
+        (tb3, "load_sana_transformer"), (tb3, "load_sana_unigen_adapter"))]
     patches += [(mod, n, quantizer(n, getattr(mod, n))) for mod, n in (
         (loading, "_quantize_unigen_tree"), (loading, "_quantize_text"),
         (quant, "quantize_unigen_serving_streaming"))]
@@ -4951,6 +5019,843 @@ def phase_train_cli(torch, dev, seed, root):
     return line
 
 
+# ------------------------------------------------------------ the SANA family
+
+def sana_backbone():
+    """Sana_1600M_1024px's transformer: 20 blocks, 2240 wide (70 x 32
+    linear heads, 20 x 112 cross heads), caption 2304."""
+    from unigen_tpu_torch import config as cfg_lib
+    return cfg_lib.SanaBackboneConfig()
+
+
+def sana_text_configs():
+    """Gemma-2-2B (gemma_config_from_json's defaults) and CLIP-L, whose
+    pooled 768 is SANA's pooled_projection_dim."""
+    from unigen_tpu_torch.models.clip_text import CLIPTextConfig
+    from unigen_tpu_torch.pipelines.loading import gemma_config_from_json
+    return gemma_config_from_json({}), CLIPTextConfig()
+
+
+def sana_dcae_config():
+    """The DC-AE f32c32 (6 stages, 32x down, 32 latent channels)."""
+    from unigen_tpu_torch.models import dcae
+    return dcae.DCAEConfig()
+
+
+def sana_config(per_sample=False):
+    """The UniGen-SANA config: the default control branch (20 control
+    blocks, one condition, 6 modulated experts, the shared expert); global
+    routing as load_sana_pipeline builds it, or per-sample routing (the
+    StepServer's)."""
+    from unigen_tpu_torch import config as cfg_lib
+    moe = cfg_lib.MoEConfig(batch_mode="per_sample" if per_sample else "global")
+    return cfg_lib.UniGenConfig(family="sana", sana=sana_backbone(),
+                                control=cfg_lib.ControlConfig(moe=moe),
+                                condition_types=("canny",))
+
+
+def sana_quantized_calls(params, cfg, leaf: str, replay: bool = False) -> int:
+    """Calls of the quantized linears whose codes are ``leaf`` in one
+    UniGen-SANA forward: the base blocks, the control blocks (one after
+    each base block) and the add linears once per base block, the unused
+    second shared-expert block never, any other once; a forward replaying
+    cached control outputs (``replay``) runs the base and the add linears
+    only."""
+    from unigen_tpu_torch.utils import tree_leaves_with_path
+    n = cfg.sana.num_layers
+    uses = {("base", "blocks"): n, ("control", "blocks"): n, ("control", "add_blocks"): n}
+    return sum(uses.get(path[:2], 1) for path, _ in tree_leaves_with_path(params)
+               if path[-1] == leaf and path[:3] != ("control", "shared_expert", "block1")
+               and not (replay and path[0] == "control" and path[1] != "add_blocks"))
+
+
+def expected_sana_launches(params, cfg, replay: bool = False):
+    """Kernel launches of one UniGen-SANA forward of a W4A8 / W8A8 tree (any
+    batch): W4A8 and the activation quantization of every quantized linear.
+    SANA's attention reaches no kernel (the linear attention is fp32
+    products, the cross-attention the plain masked attention), as in JAX."""
+    w4 = sana_quantized_calls(params, cfg, "w_q4", replay)
+    return {"w4a8_matmul": w4, "w4a8_general": 0,
+            "quantize_act": w4 + sana_quantized_calls(params, cfg, "w_q", replay)}
+
+
+def expected_sana_pipeline_launches(params, cfg, kinds):
+    """Launches of SANA denoise loops: ``kinds`` lists (batch, n_full,
+    n_base) per loop; a full step one forward, a replaying step a replay
+    forward, a skip step none."""
+    parts = []
+    for _, n_full, n_base in kinds:
+        parts += [(n_full, expected_sana_launches(params, cfg)),
+                  (n_base, expected_sana_launches(params, cfg, replay=True))]
+    return add_counts(*parts)
+
+
+def sana_forward_launches(params, cfg, calls):
+    """Launches of the SANA forwards a server dispatched (rows, kind)."""
+    return add_counts(*[(1, expected_sana_launches(params, cfg, kind == "replay"))
+                        for _, kind in calls])
+
+
+def sana_residual_cache_bytes(cfg, batch, s_img, bits, itemsize=2):
+    """Bytes of the SANA control-output cache: one [n_base, B, S, D] stack
+    in the pipeline's dtype, or int8 / packed int4 codes with an fp32 scale
+    a token."""
+    bb = cfg.sana
+    per_token = {16: itemsize * bb.inner_dim, 8: bb.inner_dim + 4, 4: bb.inner_dim // 2 + 4}
+    return bb.num_layers * batch * s_img * per_token[bits]
+
+
+def tf32_flags(torch):
+    """The TF32 switches the fp32 products and convolutions ran under."""
+    return dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                cudnn=torch.backends.cudnn.allow_tf32)
+
+
+def sana_world(torch, dev, seed, cfg):
+    """The full-width SANA serving stack on the card from ``seed``: the
+    UniGen-SANA tree (bf16, every leaf drawn, the add linears too) quantized
+    by the loader's w4a8 policy (int4 base, int8 adapter), Gemma-2-2B (bf16)
+    and CLIP-L (fp32) quantized by quantize_text="w4a8", the fp32 DC-AE.
+    -> (params, gemma, gemma_cfg, clip, clip_cfg, dcae params, dcae cfg)."""
+    from unigen_tpu_torch.io.from_jax import init_sana_serving_params
+    from unigen_tpu_torch.models import clip_text, dcae, gemma_text
+    from unigen_tpu_torch.pipelines.loading import _quantize_text, _quantize_unigen_tree
+    tree = init_sana_serving_params(cfg, seed=seed, device=dev)
+    base, control = _quantize_unigen_tree(tree["base"], tree["control"], "w4a8")
+    gcfg, ccfg = sana_text_configs()
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    gemma = _quantize_text(gemma_text.init_gemma_params(gcfg, gen=g, device=dev,
+                                                        dtype=torch.bfloat16), "w4a8")
+    clip = _quantize_text(clip_text.init_clip_params(ccfg, gen=g, device=dev), "w4a8")
+    ae_cfg = sana_dcae_config()
+    ae = dcae.init_dcae_params(ae_cfg, gen=g, device=dev)
+    return {"base": base, "control": control}, gemma, gcfg, clip, ccfg, ae, ae_cfg
+
+
+def sana_pipeline(torch, dev, cfg, params, gemma, gcfg, clip, ccfg, ae, ae_cfg, seed):
+    """UniGenSanaPipeline over these trees, bf16, seeded stub tokenizers,
+    the prompt LRU on."""
+    from unigen_tpu_torch.models import dcae
+    from unigen_tpu_torch.pipelines.sana import UniGenSanaPipeline
+    return UniGenSanaPipeline(
+        cfg=cfg, params=params,
+        ae_encode=functools.partial(dcae.dcae_encode, ae, ae_cfg),
+        ae_decode=functools.partial(dcae.dcae_decode, ae, ae_cfg),
+        ae_downscale=ae_cfg.downscale, gemma_cfg=gcfg, gemma_params=gemma,
+        clip_cfg=ccfg, clip_params=clip,
+        tokenizer=SeededTokenizer(gcfg.vocab_size, 1, seed + 32),
+        tokenizer_clip=SeededTokenizer(ccfg.vocab_size, ccfg.vocab_size - 1, seed + 33),
+        dtype=torch.bfloat16, prompt_cache_size=64, device=dev)
+
+
+def sana_forward(torch, pipe, embeds, mask, pooled, cond_pooled, control_lat, seed,
+                 replay=False):
+    """One forward of the pipeline's tree at its shapes, at the first step of
+    a SANA_STEPS schedule (noise from ``seed``); with ``replay`` the replay
+    of that forward's captured control outputs."""
+    from unigen_tpu_torch.models.sana import sana_unigen_forward
+    from unigen_tpu_torch.pipelines import scheduling
+    dev, dt = pipe.device, pipe.dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lat = torch.randn(tuple(control_lat.shape), generator=g, device=dev, dtype=dt)
+    lh, lw = control_lat.shape[2:]
+    _, ts = scheduling.inference_sigmas(pipe.scheduler, SANA_STEPS, image_seq_len=lh * lw)
+    t = torch.full((lat.shape[0],), float(ts[0] / 1000.0), dtype=dt, device=dev)
+    args = (pipe.params, pipe.cfg, lat, control_lat, embeds, pooled, cond_pooled, t, mask)
+    if not replay:
+        return lambda: sana_unigen_forward(*args)[0]
+    res = sana_unigen_forward(*args, return_control_residuals=True)[2]["control_residuals"]
+    return lambda: sana_unigen_forward(*args, control_residuals=res)[0]
+
+
+SANA_LABELS = ("sana linear attention", "sana cross-attention", "sana depthwise conv",
+               "dc-ae")
+
+
+@contextlib.contextmanager
+def sana_ranges(torch, pipe):
+    """Profiler ranges around the SANA blocks' linear attention, masked
+    cross-attention and depthwise convolution (their module functions
+    wrapped) and around the pipeline's DC-AE calls."""
+    from unigen_tpu_torch.layers import blocks_sana
+    targets = [(blocks_sana, "relu_linear_attention", SANA_LABELS[0]),
+               (blocks_sana, "sdpa_xla", SANA_LABELS[1]),
+               (blocks_sana, "depthwise_conv", SANA_LABELS[2])]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in targets]
+    codec = pipe.ae_encode, pipe.ae_decode
+
+    def labeled(fn, label):
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return run
+    for m, n, label in targets:
+        setattr(m, n, labeled(getattr(m, n), label))
+    pipe.ae_encode, pipe.ae_decode = (labeled(pipe.ae_encode, SANA_LABELS[3]),
+                                      labeled(pipe.ae_decode, SANA_LABELS[3]))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+        pipe.ae_encode, pipe.ae_decode = codec
+
+
+def labeled_breakdown(torch, fn, labels):
+    """Device time of one call of ``fn`` by group: the kernels that the
+    torch ops inside each ``labels`` profiler range launched (the outermost
+    range wins), then the rest by kernel name (W4A8, the activation
+    quantization, library GEMMs such as W8A8's ``_int_mm``, convolutions,
+    elementwise and other). -> (wall ms of an unprofiled call, {group: ms},
+    device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    inside, flat = {}, {}
+
+    def visit(e, label):
+        label = label or (e.name if e.name in labels else None)
+        if label:
+            for k in e.kernels:
+                by = inside.setdefault(label, {})
+                by[k.name] = by.get(k.name, 0.0) + k.duration
+        for c in e.cpu_children:
+            visit(c, label)
+    for e in events:
+        if e.device_type == cpu and e.cpu_parent is None:
+            visit(e, None)
+        elif e.device_type == cuda and e.name not in labels:
+            # (a range's own span on the device timeline is not a kernel)
+            flat[e.name] = flat.get(e.name, 0.0) + e.time_range.elapsed_us()
+    groups = {label: sum(by.values()) / 1e3 for label, by in inside.items()}
+    for name, us in flat.items():
+        rest = us - sum(by.get(name, 0.0) for by in inside.values())
+        g = conv_group(name)
+        g = "library gemm (_int_mm)" if g == "library gemm" else g
+        groups[g] = groups.get(g, 0.0) + max(rest, 0.0) / 1e3
+    return wall_ms, groups, sum(flat.values()) / 1e3
+
+
+def sana_requests(torch, dev, bb, n, res, seed, latent_shape, t_len=SANA_TXT):
+    """``n`` b=1 requests drawn on the device from ``seed``: caption rows
+    with a padding mask (a different count of tokens each), pooled rows,
+    control pixels in [-1, 1] that bf16 represents exactly (the pipeline
+    casts them to bf16 before its codec, the server does not), noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    out = []
+    for i in range(n):
+        mask = torch.zeros((1, t_len), dtype=torch.int32, device=dev)
+        mask[:, :1 + (17 + 37 * i) % (t_len - 1)] = 1
+        px = (torch.rand(1, 3, res, res, generator=g, device=dev) * 2 - 1)
+        out.append(dict(prompt_embeds=mk(1, t_len, bb.caption_channels), prompt_mask=mask,
+                        pooled=mk(1, bb.pooled_projection_dim),
+                        cond_pooled=mk(1, bb.pooled_projection_dim),
+                        control_pixels=px.to(torch.bfloat16).float(),
+                        latents=mk(1, *latent_shape)))
+    return out
+
+
+def phase_sana(torch, dev, seed):
+    """9. The full-width SANA stack (sana_world) through UniGenSanaPipeline
+    at SANA_RES^2, SANA_STEPS steps: in each mode of SANA_PIPE_MODES four
+    b=1 requests with prompts through Gemma (300 tokens, padded) and CLIP,
+    served by MicroBatchServer(batch_size=2); launches against
+    expected_sana_pipeline_launches plus each encode's; sana_path_check (a
+    full forward and a Gemma encode, every kernel call against its plain
+    version); sana_profile. -> (the exact mode's launches, the trees)."""
+    from unigen_tpu_torch.models.gemma_text import gemma_encode
+    from unigen_tpu_torch.pipelines.caching import resolve_cache_mode
+    from unigen_tpu_torch.serving import MicroBatchServer
+    from unigen_tpu_torch.utils import param_bytes
+    cfg = sana_config()
+    bb = cfg.sana
+    t0 = time.time()
+    world = sana_world(torch, dev, seed, cfg)
+    params, gemma, gcfg, clip, ccfg, ae, ae_cfg = world
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    pipe = sana_pipeline(torch, dev, cfg, *world, seed)
+    res, steps = SANA_RES, SANA_STEPS
+    s_img = (res // ae_cfg.downscale // bb.patch_size) ** 2
+    host = torch.Generator().manual_seed(seed + 34)
+    pixels = [torch.rand(1, 3, res, res, generator=host) * 2 - 1 for _ in range(N_REQUESTS)]
+    per_gemma, per_clip = text_launches(gemma), text_launches(clip)
+    # warm-up: a b=2 generate on the control cache (capture and replay
+    # forwards, both codec directions, both encoders)
+    e, m = pipe.encode_prompt(["warm-up a", "warm-up b"])
+    p = pipe.encode_pooled(["warm-up a", "warm-up b"])
+    pipe.generate(prompt_embeds=e, prompt_mask=m, pooled=p, cond_pooled=p,
+                  control_pixels=torch.cat(pixels[:BATCH]), height=res, width=res,
+                  num_inference_steps=2, control_cache_interval=2)
+    torch.cuda.synchronize()
+    print(f"# sana: stack built in {build_s:.1f}s, warm-up done", flush=True)
+
+    lines = {}
+    for name, knobs in SANA_PIPE_MODES:
+        mode = resolve_cache_mode(steps, family="sana", **knobs)
+        refreshes, stages, held = [], {}, []
+
+        def run(x, knobs=knobs):
+            out = pipe.generate(**x, height=res, width=res, num_inference_steps=steps,
+                                **knobs)
+            refreshes.append((x["pooled"].shape[0], pipe.last_cache_refreshes))
+            return out
+
+        srv = MicroBatchServer(run, batch_size=BATCH, max_wait_ms=50)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        encodes = {"gemma": 0, "clip": 0}
+        try:
+            with stage_timer(torch, pipe, stages), residual_probe(pipe, held):
+                t0 = time.perf_counter()
+                enc_start = torch.cuda.Event(enable_timing=True)
+                enc_end = torch.cuda.Event(enable_timing=True)
+                enc_start.record()
+                reqs = []
+                for r in range(N_REQUESTS):
+                    prompt = f"{name} request {r}: a photo of a red cube on a table"
+                    before = pipe._prompt_cache.misses
+                    emb, mask = pipe.encode_prompt(prompt, SANA_TXT)
+                    mid = pipe._prompt_cache.misses
+                    pooled, cpool = pipe.encode_pooled(prompt), pipe.encode_pooled("canny")
+                    encodes["gemma"] += mid - before
+                    encodes["clip"] += pipe._prompt_cache.misses - mid
+                    reqs.append(dict(prompt_embeds=emb, prompt_mask=mask, pooled=pooled,
+                                     cond_pooled=cpool, control_pixels=pixels[r]))
+                enc_end.record()
+                outs = [f.result(timeout=900) for f in [srv.submit(**x) for x in reqs]]
+                wall = time.perf_counter() - t0
+        finally:
+            srv.close()
+        launches = nonzero(launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        ms = stage_ms(torch, stages)
+        ms["prompt_encoding"] = enc_start.elapsed_time(enc_end)
+        kinds = [(b, *step_kinds(mode, ref, steps)) for b, ref in refreshes]
+        want = add_counts((1, expected_sana_pipeline_launches(params, cfg,
+                                                              [k[:3] for k in kinds])),
+                          (encodes["gemma"], per_gemma), (encodes["clip"], per_clip))
+        cached = mode.hybrid or not (mode.exact or mode.model_cache)
+        pad = int((reqs[0]["prompt_mask"] == 0).sum())
+        line = dict(phase="sana_pipeline", mode=name, knobs=knobs, requests=N_REQUESTS,
+                    batches=srv.stats.batches, steps=steps, resolution=res,
+                    text_tokens=SANA_TXT, first_prompt_padding_tokens=pad,
+                    wall_ms=wall * 1e3, images_per_s=N_REQUESTS / wall, stage_ms=ms,
+                    steps_per_batch=[dict(batch=b, n_full=f, n_base=n, n_skip=s)
+                                     for b, f, n, s in kinds],
+                    residual_cache_bytes=max(held, default=0),
+                    residual_cache_bytes_formula=(
+                        sana_residual_cache_bytes(cfg, BATCH, s_img, mode.bits)
+                        if cached else 0),
+                    residual_bits=mode.bits if cached else None, prompt_encodes=encodes,
+                    resident_bytes=resident, peak_bytes=peak,
+                    peak_above_resident_bytes=peak - resident, tf32=tf32_flags(torch),
+                    launches=launches, expected_launches=want,
+                    out_shape=list(outs[0].shape))
+        emit(line)
+        lines[name] = line
+        for o in outs:
+            if o.dtype != torch.uint8 or tuple(o.shape) != (1, res, res, 3):
+                raise SystemExit(f"sana_pipeline {name}: bad output {o.dtype} {tuple(o.shape)}")
+        if launches != want or srv.stats.batches != N_REQUESTS // BATCH \
+                or encodes["gemma"] != N_REQUESTS or not pad:
+            raise SystemExit(f"sana_pipeline {name}: launches {launches} != expected {want} "
+                             f"({srv.stats.batches} batches, {encodes} encodes, "
+                             f"{pad} padding tokens, steps {kinds})")
+        if bool(held) != cached:
+            raise SystemExit(f"sana_pipeline {name}: {len(held)} residual captures in a "
+                             f"{'cached' if cached else 'cache-free'} mode")
+
+    # path check: every kernel call of one b=2 forward and one Gemma encode
+    # against its plain version, with the W4A8 shapes they ran
+    e2, m2 = pipe.encode_prompt(["path check a", "path check b"], SANA_TXT)
+    p2 = pipe.encode_pooled(["path check a", "path check b"])
+    control_lat = pipe.encode_control(torch.cat(pixels[:BATCH]).to(dev))
+    fwd = sana_forward(torch, pipe, e2, m2, p2, p2, control_lat, seed)
+    ids = SeededTokenizer(gcfg.vocab_size, 1, seed)(["a photo of a red cube"],
+                                                      max_length=SANA_TXT)
+    path = {}
+    with torch.no_grad():
+        for what, call, want in (
+                ("forward", fwd, expected_sana_launches(params, cfg)),
+                ("gemma_encode", lambda: gemma_encode(gemma, gcfg, ids.input_ids,
+                                                      torch.as_tensor(ids.attention_mask)),
+                 per_gemma)):
+            checks = {}
+            with shadowed_kernels(torch, checks):
+                out = call()
+            summary = path_check_summary(checks)
+            path[what] = dict(summary, expected_calls=nonzero(want),
+                              w4a8_shapes=shape_counts(checks.get("w4a8_matmul", [])),
+                              finite=bool(torch.isfinite(out.float()).all()))
+            calls = {n: c["calls"] for n, c in summary.items()}
+            if any(c["disagree"] for c in summary.values()) or not path[what]["finite"] \
+                    or calls != {n: v for n, v in nonzero(want).items()
+                                 if n != "w4a8_general"}:
+                raise SystemExit(f"sana_path_check {what}: {summary} (expected {want})")
+    emit(dict(phase="sana_path_check", **path))
+
+    # profile: control encode, one b=2 forward and the decode, by group
+    lat2 = torch.randn(tuple(control_lat.shape), generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev, dtype=pipe.dtype)
+    px2 = torch.cat(pixels[:BATCH]).to(dev)
+    with torch.no_grad(), sana_ranges(torch, pipe):
+        wall_ms, groups, busy = labeled_breakdown(
+            torch, lambda: (pipe.encode_control(px2), fwd(), pipe.decode(lat2)),
+            SANA_LABELS)
+        fwd_wall, fwd_groups, fwd_busy = labeled_breakdown(torch, fwd, SANA_LABELS)
+    emit(dict(phase="sana_profile", what="DC-AE encode + one b=2 forward + DC-AE decode",
+              wall_ms=wall_ms, device_busy_ms=busy, groups_ms=groups,
+              forward=dict(wall_ms=fwd_wall, device_busy_ms=fwd_busy, groups_ms=fwd_groups),
+              tf32=tf32_flags(torch), resident_bytes=param_bytes(params),
+              gemma_bytes=param_bytes(gemma), clip_bytes=param_bytes(clip),
+              dcae_bytes=param_bytes(ae)))
+    return lines["exact"]["launches"], pipe
+
+
+def sana_cut(cfg, params, depth):
+    """The SANA config and a view of its tree cut to ``depth`` base and
+    control blocks (the first of each stack, no copy)."""
+    import dataclasses
+
+    from unigen_tpu_torch.utils import tree_map
+
+    def take(tree):
+        return tree_map(lambda t: t[:depth], tree)
+    base = dict(params["base"], blocks=take(params["base"]["blocks"]))
+    ctrl = dict(params["control"], blocks=take(params["control"]["blocks"]),
+                add_blocks=take(params["control"]["add_blocks"]))
+    return (dataclasses.replace(cfg, sana=dataclasses.replace(cfg.sana, num_layers=depth),
+                                control=dataclasses.replace(cfg.control, num_layers=depth)),
+            {"base": base, "control": ctrl})
+
+
+def sana_stream_finite(torch, cfg, params, req, dev):
+    """One b=1 forward (the request's noise as latents and condition):
+    whether the stream entering the output norm keeps a finite mean square
+    in fp32 on every token, and the prediction is finite."""
+    from unigen_tpu_torch.models import sana as sana_mod
+    seen, real = [], sana_mod._output
+
+    def probe(base, bb, h, *a):
+        seen.append(bool(torch.isfinite(h.float().square().mean(-1)).all()))
+        return real(base, bb, h, *a)
+    lat = req["latents"]
+    sana_mod._output = probe
+    try:
+        with torch.no_grad():
+            pred = sana_mod.sana_unigen_forward(
+                params, cfg, lat, lat, req["prompt_embeds"], req["pooled"],
+                req["cond_pooled"], torch.full((1,), 0.5, dtype=lat.dtype, device=dev),
+                req["prompt_mask"])[0]
+    finally:
+        sana_mod._output = real
+    return seen[-1] and bool(torch.isfinite(pred.float()).all())
+
+
+def sana_pipeline_finals(torch, pipe, reqs, knobs, res, steps, batch):
+    """The pipeline's (final latents, images) of ``reqs`` with the server's
+    ``knobs``, ``batch`` requests a generate; each control image encoded
+    alone, as the server's admission encodes it."""
+    got, real_decode, real_encode = [], pipe.decode, pipe.encode_control
+
+    def keep(lat):
+        got.append(lat)
+        return real_decode(lat)
+
+    def one_by_one(px):
+        return torch.cat([real_encode(px[i:i + 1]) for i in range(px.shape[0])])
+    pipe.decode, pipe.encode_control = keep, one_by_one
+    imgs = []
+    try:
+        for i in range(0, len(reqs), batch):
+            part = reqs[i:i + batch]
+            x = {k: torch.cat([r[k] for r in part]) for k in part[0]}
+            imgs.append(pipe.generate(**x, height=res, width=res,
+                                      num_inference_steps=steps, **knobs))
+    finally:
+        del pipe.decode, pipe.encode_control
+    return torch.cat(got), torch.cat(imgs)
+
+
+def phase_stepserve_sana(torch, dev, pipe, seed):
+    """9b. StepServer(family sana) on phase 9's trees with per-sample
+    routing: STEPSERVE_SLOTS slots at SANA_RES^2, SANA_STEPS steps, in each
+    mode of SANA_STEPSERVE_MODES (cold and warm requests, then
+    SANA_STEPSERVE_REQUESTS from threads); then stepserve_sana_check: at the
+    deepest of SANA_DEPTHS whose random stream stays finite, each request's
+    final latents against the pipeline's generate at the same shapes
+    (exact: all slots against b=4; the hybrid: one-row gathered forwards
+    against b=1) within STEPSERVE_REL_L2."""
+    import dataclasses
+
+    from unigen_tpu_torch.serving_steps import StepServer
+    cfg = sana_config(per_sample=True)
+    bb = cfg.sana
+    res, steps = SANA_RES, SANA_STEPS
+    lat = res // pipe.ae_downscale
+    codec = dict(ae_encode=pipe.ae_encode, ae_decode=pipe.ae_decode,
+                 ae_downscale=pipe.ae_downscale)
+    n_sus = SANA_STEPSERVE_REQUESTS
+    reqs = sana_requests(torch, dev, bb, 2 + n_sus, res, seed + 35, (bb.in_channels, lat, lat))
+    lines = {}
+    for name, knobs in SANA_STEPSERVE_MODES:
+        srv = StepServer(cfg, pipe.params, batch_size=STEPSERVE_SLOTS,
+                         num_inference_steps=steps, height=res, width=res, device=dev,
+                         **codec, **knobs)
+        lines[name] = drive_server(
+            torch, dev, srv, reqs, n_sus, "stepserve_sana",
+            lambda calls: sana_forward_launches(pipe.params, cfg, calls), mode=name,
+            knobs=knobs, steps=steps, resolution=res)
+
+    depth = next((d for d in SANA_DEPTHS
+                  if sana_stream_finite(torch, *sana_cut(cfg, pipe.params, d), reqs[0], dev)),
+                 None)
+    if depth is None:
+        raise SystemExit(f"stepserve_sana: the random stream saturates at every depth "
+                         f"of {SANA_DEPTHS}")
+    cut_cfg, cut = sana_cut(cfg, pipe.params, depth)
+    ref = dataclasses.replace(pipe, cfg=cut_cfg, params=cut)
+    check = {}
+    part = reqs[2:2 + STEPSERVE_SLOTS]
+    for name, knobs in SANA_STEPSERVE_MODES:
+        srv = StepServer(cut_cfg, cut, batch_size=STEPSERVE_SLOTS,
+                         num_inference_steps=SANA_CHECK_STEPS, height=res, width=res,
+                         device=dev, **codec, **knobs)
+        try:
+            finals, calls, stats, admission = serve_at_reference_shapes(srv, part, knobs)
+            same_shapes = at_reference_shapes(srv, knobs, calls, stats)
+        finally:
+            srv.close()
+        ref_lat, ref_img = sana_pipeline_finals(torch, ref, part, knobs, res,
+                                                SANA_CHECK_STEPS,
+                                                STEPSERVE_SLOTS if not knobs else 1)
+        rels, codes = compare_finals(torch, part, finals, ref_lat, ref_img)
+        check[name] = dict(admission=admission, same_shapes=same_shapes,
+                           max_rel_l2=max(rels), max_uint8_diff=max(codes))
+    emit(dict(phase="stepserve_sana_check", depth=depth, steps=SANA_CHECK_STEPS,
+              reference="UniGenSanaPipeline.generate of the same requests at the same "
+                        "shapes", metric="relative L2 of the final latents' displacement "
+                        "from the noise", bound_rel_l2=STEPSERVE_REL_L2, modes=check))
+    bad = {k: c for k, c in check.items()
+           if not c["same_shapes"] or not c["max_rel_l2"] <= STEPSERVE_REL_L2}
+    if bad:
+        raise SystemExit(f"stepserve_sana: the server differs from the pipeline: {bad}")
+    return lines
+
+
+def _sana_block_shapes(sd, p, bb):
+    """A diffusers SanaTransformerBlock's names and shapes (the linear
+    attention's q, k, v without bias, the GLUMBConv's 1x1 and depthwise
+    convolutions)."""
+    d = bb.inner_dim
+    inner_x = bb.num_cross_attention_heads * bb.cross_attention_head_dim
+    hidden = int(d * bb.mlp_ratio)
+    sd[f"{p}.scale_shift_table"] = (6, d)
+    for n in ("to_q", "to_k", "to_v"):
+        _lin_shapes(sd, f"{p}.attn1.{n}", d, d, bias=False)
+    _lin_shapes(sd, f"{p}.attn1.to_out.0", d, d)
+    for n in ("to_q", "to_k", "to_v"):
+        _lin_shapes(sd, f"{p}.attn2.{n}", d, inner_x)
+    _lin_shapes(sd, f"{p}.attn2.to_out.0", inner_x, d)
+    sd[f"{p}.ff.conv_inverted.weight"] = (2 * hidden, d, 1, 1)
+    sd[f"{p}.ff.conv_inverted.bias"] = (2 * hidden,)
+    sd[f"{p}.ff.conv_depth.weight"] = (2 * hidden, 1, 3, 3)
+    sd[f"{p}.ff.conv_depth.bias"] = (2 * hidden,)
+    sd[f"{p}.ff.conv_point.weight"] = (d, hidden, 1, 1)
+
+
+def _adaln_single_shapes(sd, p, d):
+    _lin_shapes(sd, f"{p}.emb.timestep_embedder.linear_1", 256, d)
+    _lin_shapes(sd, f"{p}.emb.timestep_embedder.linear_2", d, d)
+    _lin_shapes(sd, f"{p}.linear", d, 6 * d)
+
+
+def sana_transformer_shapes(bb):
+    """diffusers SanaTransformer2DModel's names and shapes."""
+    sd, d = {}, bb.inner_dim
+    sd["patch_embed.proj.weight"] = (d, bb.in_channels, bb.patch_size, bb.patch_size)
+    sd["patch_embed.proj.bias"] = (d,)
+    _adaln_single_shapes(sd, "time_embed", d)
+    _lin_shapes(sd, "caption_projection.linear_1", bb.caption_channels, d)
+    _lin_shapes(sd, "caption_projection.linear_2", d, d)
+    sd["caption_norm.weight"] = (d,)
+    for i in range(bb.num_layers):
+        _sana_block_shapes(sd, f"transformer_blocks.{i}", bb)
+    sd["scale_shift_table"] = (2, d)
+    _lin_shapes(sd, "proj_out", d, bb.patch_size ** 2 * bb.out_channels)
+    return sd
+
+
+def sana_adapter_shapes(cfg):
+    """The reference SANAUniGen adapter's names and shapes (the control
+    blocks and their add linears, the condition patch embed and time
+    embed, the modulated experts, the two shared-expert blocks)."""
+    bb, cc = cfg.sana, cfg.control
+    sd, d = {}, bb.inner_dim
+    n_cn = cc.num_layers or bb.num_layers
+    sd["control_pos_embed_input.proj.weight"] = (d, bb.in_channels, bb.patch_size,
+                                                 bb.patch_size)
+    sd["control_pos_embed_input.proj.bias"] = (d,)
+    _adaln_single_shapes(sd, "control_condition_embed", d)
+    _lin_shapes(sd, "control_context_embedder", d, d)
+    for i in range(n_cn):
+        _sana_block_shapes(sd, f"control_transformer_blocks.{i}", bb)
+        _lin_shapes(sd, f"controlnet_add_blocks.{i}", d, d)
+    e_num = cc.moe.num_experts(cfg.condition_nums)
+    sd["moe.moe_layer.gate.wg.weight"] = (e_num, d)
+    for e in range(e_num):
+        for pair in (0, 1):
+            p = f"moe.moe_layer.experts.deepspeed_experts.{e}.{pair}"
+            _lin_shapes(sd, f"{p}.0", d, d)
+            _lin_shapes(sd, f"{p}.1", bb.pooled_projection_dim, d)
+    for k in (0, 1):
+        _sana_block_shapes(sd, f"shared_expert.{k}", bb)
+    return sd
+
+
+def gemma_shapes(gcfg):
+    """transformers Gemma2Model's names and shapes."""
+    sd, d, hd = {"embed_tokens.weight": (gcfg.vocab_size, gcfg.hidden_size)}, \
+        gcfg.hidden_size, gcfg.head_dim
+    for i in range(gcfg.num_layers):
+        p = f"layers.{i}"
+        for n in ("input_layernorm", "post_attention_layernorm",
+                  "pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            sd[f"{p}.{n}.weight"] = (d,)
+        _lin_shapes(sd, f"{p}.self_attn.q_proj", d, gcfg.num_heads * hd, bias=False)
+        _lin_shapes(sd, f"{p}.self_attn.k_proj", d, gcfg.num_kv_heads * hd, bias=False)
+        _lin_shapes(sd, f"{p}.self_attn.v_proj", d, gcfg.num_kv_heads * hd, bias=False)
+        _lin_shapes(sd, f"{p}.self_attn.o_proj", gcfg.num_heads * hd, d, bias=False)
+        _lin_shapes(sd, f"{p}.mlp.gate_proj", d, gcfg.intermediate_size, bias=False)
+        _lin_shapes(sd, f"{p}.mlp.up_proj", d, gcfg.intermediate_size, bias=False)
+        _lin_shapes(sd, f"{p}.mlp.down_proj", gcfg.intermediate_size, d, bias=False)
+    sd["norm.weight"] = (d,)
+    return sd
+
+
+def gemma_config_json(gcfg):
+    return {"architectures": ["Gemma2Model"], "vocab_size": gcfg.vocab_size,
+            "hidden_size": gcfg.hidden_size, "intermediate_size": gcfg.intermediate_size,
+            "num_hidden_layers": gcfg.num_layers, "num_attention_heads": gcfg.num_heads,
+            "num_key_value_heads": gcfg.num_kv_heads, "head_dim": gcfg.head_dim,
+            "rms_norm_eps": gcfg.rms_norm_eps, "rope_theta": gcfg.rope_theta,
+            "attn_logit_softcapping": gcfg.attn_logit_softcapping,
+            "query_pre_attn_scalar": gcfg.query_pre_attn_scalar,
+            "sliding_window": gcfg.sliding_window}
+
+
+def write_sana_checkpoint(torch, dev, root, cfg, seed):
+    """A random SANA directory of ``cfg``'s sizes: the diffusers transformer
+    (bf16), Gemma-2 as text_encoder (bf16, two shards), the DC-AE in the
+    native format under vae/ (fp32, drawn by the port's init), CLIP-L in
+    clip/ (fp16), the scheduler; each tensor drawn on ``dev`` from
+    ``seed``. -> bytes per component."""
+    from unigen_tpu_torch.models import dcae
+    from unigen_tpu_torch.utils import param_bytes
+    bb = cfg.sana
+    gcfg, ccfg = sana_text_configs()
+    ae_cfg = sana_dcae_config()
+    bf16, f16 = torch.bfloat16, torch.float16
+    tcfg = dict(_class_name="SanaTransformer2DModel", in_channels=bb.in_channels,
+                out_channels=bb.out_channels, num_layers=bb.num_layers,
+                attention_head_dim=bb.attention_head_dim,
+                num_attention_heads=bb.num_attention_heads,
+                num_cross_attention_heads=bb.num_cross_attention_heads,
+                cross_attention_head_dim=bb.cross_attention_head_dim,
+                cross_attention_dim=bb.cross_attention_dim,
+                caption_channels=bb.caption_channels, mlp_ratio=bb.mlp_ratio,
+                patch_size=bb.patch_size, sample_size=bb.sample_size,
+                pooled_projection_dim=bb.pooled_projection_dim)
+    ccfg_json = {"architectures": ["CLIPTextModel"], "vocab_size": ccfg.vocab_size,
+                 "hidden_size": ccfg.hidden_size,
+                 "intermediate_size": ccfg.intermediate_size,
+                 "num_hidden_layers": ccfg.num_layers,
+                 "num_attention_heads": ccfg.num_heads,
+                 "max_position_embeddings": ccfg.max_position_embeddings,
+                 "eos_token_id": ccfg.eos_token_id, "hidden_act": ccfg.hidden_act}
+    parts = [("transformer", sana_transformer_shapes(bb), bf16, 1, tcfg,
+              "diffusion_pytorch_model"),
+             ("text_encoder", gemma_shapes(gcfg), bf16, 2, gemma_config_json(gcfg), "model"),
+             ("clip", clip_shapes(ccfg), f16, 1, ccfg_json, "model")]
+    ae_bytes = param_bytes(dcae.init_dcae_params(ae_cfg, device="meta"))   # fp32
+    require_disk(root, checkpoint_bytes([
+        (shapes, torch.empty((), dtype=dt).element_size()) for _, shapes, dt, *_ in parts])
+        + ae_bytes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    written = {sub: write_component(torch, root / sub, shapes, dt, gen, dev, config,
+                                    shards=shards, stem=stem)
+               for sub, shapes, dt, shards, config, stem in parts}
+    ae = dcae.init_dcae_params(ae_cfg, gen=gen, device=dev)
+    dcae.save_dcae_native(str(root / "vae"), ae, ae_cfg)
+    written["vae"] = (root / "vae" / "dcae_native.npz").stat().st_size
+    del ae
+    (root / "scheduler").mkdir(parents=True, exist_ok=True)
+    (root / "scheduler" / "config.json").write_text(json.dumps(
+        {"_class_name": "FlowMatchEulerDiscreteScheduler", "shift": 3.0}))
+    return written
+
+
+def sana_load_check(torch, root, pipe, dev, min_dim=512):
+    """The loaded W4A8 trees of ``pipe`` (transformer: int4 base, int8
+    adapter; Gemma and CLIP W4A8 text towers) against
+    quantize_tree_streaming(donate=False) of the same directory loaded with
+    quantize=None: -> (leaves compared, leaves that differ)."""
+    from unigen_tpu_torch.ops import quant
+    from unigen_tpu_torch.pipelines.loading import load_sana_pipeline
+    raw = load_sana_pipeline(str(root), dtype=torch.bfloat16, clip_dir=str(root / "clip"),
+                             device=dev)
+    whole = functools.partial(quant.quantize_tree_streaming, donate=False)
+    pairs = [(pipe.params["base"], whole(raw.params["base"], bits=4, min_dim=min_dim)),
+             (pipe.params["control"], whole(raw.params["control"], bits=8,
+                                            min_dim=min_dim)),
+             (pipe.gemma_params, quant.quantize_text_tower(raw.gemma_params, bits=4,
+                                                           donate=False)),
+             (pipe.clip_params, quant.quantize_text_tower(raw.clip_params, bits=4,
+                                                          donate=False))]
+    compared, differ = 0, []
+    for got, want in pairs:
+        n, d = trees_equal(torch, got, want)
+        compared, differ = compared + n, differ + d
+    del raw
+    torch.cuda.empty_cache()
+    return compared, differ
+
+
+def phase_sana_load(torch, dev, seed, root):
+    """9c. A full-size random SANA directory (sana_config's transformer,
+    Gemma-2-2B, CLIP-L, the native DC-AE f32c32) written to ``root``, loaded
+    by load_sana_pipeline(dtype=bf16, quantize="w4a8", quantize_text="w4a8")
+    with its load times; sana_load_check; two requests served (one b=2
+    generate at SANA_RES^2, SANA_LOAD_STEPS steps) with stub tokenizers."""
+    from unigen_tpu_torch.pipelines.loading import load_sana_pipeline
+    from unigen_tpu_torch.utils import param_bytes
+    cfg = sana_config()
+    t0 = time.time()
+    written = write_sana_checkpoint(torch, dev, root, cfg, seed)
+    write_s = time.time() - t0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with load_timer(torch, stats):
+        pipe = load_sana_pipeline(str(root), dtype=torch.bfloat16, quantize="w4a8",
+                                  quantize_text="w4a8", clip_dir=str(root / "clip"),
+                                  device=dev)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    pipe.tokenizer = SeededTokenizer(pipe.gemma_cfg.vocab_size, 1, seed + 36)
+    pipe.tokenizer_clip = SeededTokenizer(pipe.clip_cfg.vocab_size,
+                                          pipe.clip_cfg.vocab_size - 1, seed + 37)
+    emit(dict(phase="sana_load", root=str(root), written_bytes=written, write_s=write_s,
+              load_s=load_s, **stats, transformer_bytes=param_bytes(pipe.params),
+              gemma_bytes=param_bytes(pipe.gemma_params),
+              clip_bytes=param_bytes(pipe.clip_params), ae_downscale=pipe.ae_downscale))
+    t0 = time.time()
+    compared, differ = sana_load_check(torch, root, pipe, dev)
+    emit(dict(phase="sana_load_check",
+              reference="quantize_tree_streaming(donate=False) of the quantize=None load",
+              leaves=compared, differ=differ, s=time.time() - t0))
+    if differ or not compared:
+        raise SystemExit(f"sana_load_check: the loaded and the undonated quantization "
+                         f"differ at {differ[:8]}")
+    host = torch.Generator().manual_seed(seed + 38)
+    px = torch.rand(BATCH, 3, SANA_RES, SANA_RES, generator=host) * 2 - 1
+    prompts = ["a red cube", "a blue sphere on the grass"]
+    t0 = time.time()
+    imgs = pipe(prompts, "canny", px, height=SANA_RES, width=SANA_RES,
+                num_inference_steps=SANA_LOAD_STEPS)
+    torch.cuda.synchronize()
+    emit(dict(phase="sana_load_requests", requests=len(prompts), steps=SANA_LOAD_STEPS,
+              resolution=SANA_RES, s=time.time() - t0, out_shape=list(imgs.shape)))
+    if imgs.dtype != torch.uint8 or tuple(imgs.shape) != (BATCH, SANA_RES, SANA_RES, 3):
+        raise SystemExit(f"sana_load: bad output {imgs.dtype} {tuple(imgs.shape)}")
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def sd3_base_forward_check(torch, dev, seed):
+    """8: the UniGenBase forward (unigen_base_forward) of a full-width
+    SD3.5-medium base-variant tree at b=2, 512^2: a plain forward, a
+    capture and its replay, every rope-free attention call against its
+    plain version and the calls against expected_sd3_base_launches; the
+    capture and the replay must give the plain forward's bits."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.io.from_jax import init_sd3_serving_params
+    from unigen_tpu_torch.models.unigen_sd3 import unigen_base_forward
+    run = presets.baseline_configs()["sd3_depth_28step"]
+    cfg, steps, res = run["cfg"], run["steps"], run["resolution"]
+    bb = cfg.sd3
+    params = init_sd3_serving_params(cfg, seed=seed + 41, device=dev, base_variant=True)
+    x = sd3_requests(bb, BATCH, res, seed + 42)
+    from unigen_tpu_torch.models.unigen_sd3 import SD3_SCHEDULER
+    from unigen_tpu_torch.pipelines import scheduling
+    _, ts = scheduling.inference_sigmas(SD3_SCHEDULER, steps)
+    args = [torch.cat([torch.as_tensor(r[k]) for r in x]).to(dev, torch.bfloat16)
+            for k in ("latents", "condition", "encoder", "pooled", "cond_pooled")]
+    t = torch.full((BATCH,), float(ts[0]), dtype=torch.bfloat16, device=dev)
+    checks, outs = {}, {}
+    with torch.no_grad():
+        for what, kw in (("forward", {}), ("capture", dict(return_control_residuals=True))):
+            checks[what] = {}
+            with shadowed_kernels(torch, checks[what]):
+                outs[what] = unigen_base_forward(params, cfg, *args, t,
+                                                 conditioning_scale=0.8, **kw)
+        res_stack = outs["capture"][2]["control_residuals"]
+        checks["replay"] = {}
+        with shadowed_kernels(torch, checks["replay"]):
+            outs["replay"] = unigen_base_forward(params, cfg, *args, t,
+                                                 conditioning_scale=0.8,
+                                                 control_residuals=res_stack)
+    want = {"forward": expected_sd3_base_launches(cfg, BATCH),
+            "capture": expected_sd3_base_launches(cfg, BATCH),
+            "replay": expected_sd3_replay_launches(cfg)}
+    summary = {k: path_check_summary(c) for k, c in checks.items()}
+    pred = outs["forward"][0]
+    same = {k: torch.equal(outs[k][0], pred) for k in ("capture", "replay")}
+    emit(dict(phase="sd3_base_forward_check", batch=BATCH, resolution=res,
+              residuals_shape=list(res_stack.shape), path_check=summary,
+              expected_calls=want, same_bits_as_forward=same,
+              finite=bool(torch.isfinite(pred.float()).all())))
+    bad = {k: s for k, s in summary.items()
+           if set(s) != {"flash_attention"} or s["flash_attention"]["disagree"]
+           or s["flash_attention"]["calls"] != want[k]}
+    if bad or not all(same.values()) or not torch.isfinite(pred.float()).all():
+        raise SystemExit(f"sd3_base_forward_check: {bad}, same bits {same}")
+    del params
+    torch.cuda.empty_cache()
+    return sum(s["flash_attention"]["calls"] for s in summary.values())
+
+
+def expected_sd3_base_launches(cfg, batch: int = 1) -> int:
+    """Rope-free attention calls of one UniGenBase forward at ``batch``:
+    the base pass (every joint block and the dual blocks' attn2), the two
+    preprocess weave blocks, the block experts (two calls per expert, per
+    sample under per-sample routing), the shared expert's three, and the
+    n_cn control blocks (joint or single, one call each)."""
+    bb, cc = cfg.sd3, cfg.control
+    dual = sum(i in set(bb.dual_attention_layers) for i in range(bb.num_layers))
+    experts = (0 if cc.use_modulate or cc.use_rope
+               else 2 * cc.moe.num_experts(cfg.condition_nums))
+    if cc.moe.batch_mode == "per_sample" and batch > 1:
+        experts *= batch
+    n_cn = cc.num_layers or bb.num_layers
+    return (bb.num_layers + dual + 2 + experts + (3 if cc.use_shared_expert else 0)
+            + n_cn)
+
+
 def shape_counts(records):
     """{"MxKxN": calls} of the W4A8 path-check records."""
     out = {}
@@ -5096,6 +6001,7 @@ def main() -> int:
 
     # 8. the SD3 serving path, 9. the same at 1024^2
     model, sd3_launches = phase_sd3(torch, dev, args.seed)
+    sd3_base = sd3_base_forward_check(torch, dev, args.seed)
     done("8 sd3")
     phase_sd3_1024(torch, model, args.seed)
     done("9 sd3_1024")
@@ -5119,6 +6025,21 @@ def main() -> int:
         # 4f. the training entry point on 4e's directory
         phase_train_cli(torch, dev, args.seed, CHECKPOINTS / "flux")
         done("4f train_cli")
+    finally:
+        shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+
+    # 9. the SANA family end to end; 9b. its StepServer on the same trees;
+    # 9c. SANA loaded from a full-size directory (removed whatever happens)
+    sana_launches, sana_pipe = phase_sana(torch, dev, args.seed)
+    done("9 sana")
+    phase_stepserve_sana(torch, dev, sana_pipe, args.seed)
+    del sana_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("9b stepserve_sana")
+    try:
+        phase_sana_load(torch, dev, args.seed, CHECKPOINTS / "sana")
+        done("9c sana_load")
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
@@ -5180,6 +6101,10 @@ def main() -> int:
             entry["load_flux_launches"] = load_flux["launches"][name]
         if name in lora_launches:
             entry["train_lora_launches"] = lora_launches[name]
+        if name in sana_launches:
+            entry["sana_launches"] = sana_launches[name]
+        if name == "flash_attention":
+            entry["sd3_base_forward_launches"] = sd3_base
         if name in ("flash_attention_rope",) + BWD_NAMES:
             entry.update(rotation_source="unigen_tpu_torch/csrc/flash_attention_rope.cu",
                          rotation_launches=main_path["rope_rotate"])

@@ -537,3 +537,104 @@ def test_chip_checkpoint_shapes_match_the_state_dict_fixtures(fake_ckpt, sd3_roo
         jsd3.control.moe.num_experts(1), dtype=jnp.float32)
     want = jax.eval_shape(lambda: init_unigen_sd3_control(jax.random.PRNGKey(0), jsd3))
     assert jax.tree.map(lambda x: x.shape, adapter) == jax.tree.map(lambda x: x.shape, want)
+
+
+# ---------------------------------------------------------------- SANA
+
+def _sana_cfgs():
+    kw = dict(caption_channels=32)
+    return (jcfg.UniGenConfig(family="sana", sana=jcfg.tiny_sana_config(**kw),
+                              condition_types=("canny",)),
+            tcfg.UniGenConfig(family="sana", sana=tcfg.tiny_sana_config(**kw),
+                              condition_types=("canny",)))
+
+
+@pytest.fixture(scope="module")
+def sana_root(tmp_path_factory):
+    """A tiny SANA directory written by chip_smoke's writer (transformer,
+    Gemma-2 in two shards, CLIP-L in clip/, the native DC-AE in vae/, the
+    scheduler) with the tiny configs swapped in, and a reference SANAUniGen
+    adapter (fp32, from a seed)."""
+    from unigen_tpu_torch.models import dcae, gemma_text
+    root = tmp_path_factory.mktemp("sana_root")
+    _, cfg = _sana_cfgs()
+    pooled = cfg.sana.pooled_projection_dim
+    texts = (gemma_text.tiny_gemma_config(),
+             t_clip.tiny_clip_config(hidden_size=pooled, intermediate_size=2 * pooled,
+                                     max_position_embeddings=77))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chip_smoke, "sana_text_configs", lambda: texts)
+        mp.setattr(chip_smoke, "sana_dcae_config",
+                   lambda: dcae.tiny_dcae_config(latent_channels=cfg.sana.in_channels))
+        chip_smoke.write_sana_checkpoint(torch, "cpu", root, cfg, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    chip_smoke.write_component(torch, root / "adapter", chip_smoke.sana_adapter_shapes(cfg),
+                               torch.float32, gen, "cpu")
+    return str(root)
+
+
+SANA_LOAD_CASES = [("float32", None, None), ("bfloat16", "w4a8", "w4a8"),
+                   ("bfloat16", "w8a8", "w8a8")]
+
+
+@pytest.mark.parametrize("dtype,quantize,quantize_text", SANA_LOAD_CASES)
+def test_load_sana_pipeline_trees_match_jax(sana_root, low_gate, dtype, quantize,
+                                            quantize_text):
+    """load_sana_pipeline of the same directory and adapter in both packages:
+    the {base, control} trees, Gemma and CLIP leaf for leaf, the configs, the
+    codec's downscale and the scheduler; the DC-AE read by the port equals
+    JAX's read of the same native files."""
+    from unigen_tpu.models import dcae as j_dcae
+    kw = dict(adapter_dir=str(Path(sana_root) / "adapter"), quantize=quantize,
+              quantize_text=quantize_text, clip_dir=str(Path(sana_root) / "clip"))
+    jp = jload.load_sana_pipeline(sana_root, dtype=getattr(jnp, dtype), **kw)
+    tp = tload.load_sana_pipeline(sana_root, dtype=getattr(torch, dtype), device="cpu", **kw)
+    assert_trees_equal(tp.params, jp.params)
+    assert_trees_equal(tp.gemma_params, jp.gemma_params)
+    assert_trees_equal(tp.clip_params, jp.clip_params)
+    if quantize:
+        assert any(p[-1] == ("w_q4" if quantize == "w4a8" else "w_q")
+                   for p, _ in tree_leaves_with_path(tp.params["base"]))
+        assert any(p[-1] == ("w_q4" if quantize_text == "w4a8" else "w_q")
+                   for p, _ in tree_leaves_with_path(tp.gemma_params))
+    assert dataclasses.asdict(tp.cfg) == dataclasses.asdict(jp.cfg)
+    assert dataclasses.asdict(tp.gemma_cfg) == dataclasses.asdict(jp.gemma_cfg)
+    assert dataclasses.asdict(tp.scheduler) == dataclasses.asdict(jp.scheduler)
+    assert tp.ae_downscale == jp.ae_downscale
+    ae_t = tp.ae_encode.args[0]
+    ae_j, _ = j_dcae.load_dcae_native(str(Path(sana_root) / "vae"))
+    assert_trees_equal(ae_t, ae_j)
+
+
+def test_sana_default_control_random_codec_and_load_check(sana_root, low_gate, capsys):
+    """Without an adapter the control branch is the port's init warm-started
+    from the base (its blocks, patch and time embeds copied); without a
+    native DC-AE a random one is built and stderr says so; chip_smoke's
+    sana_load_check finds no difference between a W4A8 load and the
+    unquantized load quantized without donation, and finds a changed
+    leaf."""
+    import shutil
+    from unigen_tpu_torch.models import dcae
+    pipe = tload.load_sana_pipeline(sana_root, device="cpu")
+    base, ctrl = pipe.params["base"], pipe.params["control"]
+    assert torch.equal(ctrl["blocks"]["attn1"]["to_q"]["w"], base["blocks"]["attn1"]["to_q"]["w"])
+    assert torch.equal(ctrl["pos_embed_input"]["w"], base["patch_embed"]["w"])
+    assert not ctrl["add_blocks"]["w"].any()
+    no_vae = Path(sana_root).parent / "sana_no_vae"
+    shutil.copytree(sana_root, no_vae, ignore=shutil.ignore_patterns("vae"))
+    tiny = dcae.tiny_dcae_config(latent_channels=4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dcae, "DCAEConfig", lambda latent_channels: tiny)
+        rnd = tload.load_sana_pipeline(str(no_vae), device="cpu")
+    assert "RANDOM-INIT codec" in capsys.readouterr().err
+    assert rnd.ae_downscale == tiny.downscale
+
+    q = tload.load_sana_pipeline(sana_root, dtype=torch.bfloat16, quantize="w4a8",
+                                 quantize_text="w4a8", clip_dir=str(Path(sana_root) / "clip"),
+                                 device="cpu")
+    compared, differ = chip_smoke.sana_load_check(torch, Path(sana_root), q, "cpu",
+                                                  min_dim=16)
+    assert compared > 50 and not differ, differ
+    q.params["base"]["caption_projection"]["fc2"]["w_q4"][0, 0] += 1
+    assert chip_smoke.sana_load_check(torch, Path(sana_root), q, "cpu", min_dim=16)[1] == [
+        "caption_projection.fc2.w_q4"]

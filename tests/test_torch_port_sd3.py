@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import assert_close, normal, pair, rel_l2, to_torch_tree
+from torch_port_helpers import assert_close, normal, pair, rel_l2, to_jax_tree, to_torch_tree
 from unigen_tpu import config as jcfg
 from unigen_tpu import presets as j_presets
 from unigen_tpu.layers import adaln as j_adaln
@@ -350,3 +350,96 @@ def test_serving_params_fill_and_cross_kv_list():
     again = init_sd3_serving_params(tc, seed=1, device="cpu", dtype=torch.float32)
     assert torch.equal(again["base"]["last_block"]["ff"]["fc1"]["w"],
                        p["base"]["last_block"]["ff"]["fc1"]["w"])
+
+
+def _base_variant_params(tc):
+    """A UniGenBase tree drawn by the port's init (the preprocess weave
+    blocks, the joint_dim context embedder; single control blocks without
+    encoder states; the target's own patch embed with use_pos_embed) with
+    random add linears, as the JAX tree of the same numpy leaves (JAX's
+    eager init of this tree takes ~13 s)."""
+    tp = t_usd3.init_unigen_sd3_params(tc, gen=torch.Generator().manual_seed(2),
+                                       device="cpu", base_variant=True)
+    rng = np.random.default_rng(101)
+    w = tp["control"]["add_blocks"]["w"]
+    w.copy_(torch.from_numpy(rng.uniform(-0.2, 0.2, size=tuple(w.shape)).astype(np.float32)))
+    return to_jax_tree(tp)
+
+
+def _variant_configs(cn2base, enc_states=True, pos_embed=False):
+    """Two control blocks over the four base blocks: residual int(i / 2)
+    feeds base block i."""
+    jc, tc = _configs(cn2base)
+    kw = dict(use_encoder_hidden_states=enc_states, use_pos_embed=pos_embed,
+              num_layers=2)
+    return (dataclasses.replace(jc, control=dataclasses.replace(jc.control, **kw)),
+            dataclasses.replace(tc, control=dataclasses.replace(tc.control, **kw)))
+
+
+_jit_base_forward = jax.jit(j_usd3.unigen_base_forward, static_argnums=(1,),
+                            static_argnames=("return_control_residuals",
+                                             "control_residuals_bits"))
+
+
+@pytest.mark.parametrize("cn2base,dtype,enc_states,pos_embed", [
+    ("add", "fp32", False, False), ("CrossAttn", "bf16", True, True)])
+def test_unigen_base_forward(cn2base, dtype, enc_states, pos_embed):
+    """The UniGenBase forward against JAX's (fp32: the single-block control
+    stack, against JAX's int8 capture, whose residuals the port's match
+    within one code step; bf16: joint control blocks, CrossAttn and the
+    target's own patch embed), then the port's capture and replay: at 16
+    bits the capture and the replay at the capture's state give the plain
+    forward's bits, an int8 replay stays within REPLAY_REL_L2 of it. The
+    port's base-variant init has the JAX tree's layout. One JAX compile a
+    case keeps the file's time down."""
+    from chip_smoke import REPLAY_REL_L2
+    rng = np.random.default_rng(8)
+    jc, tc = _variant_configs(cn2base, enc_states, pos_embed)
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    p32 = _base_variant_params(tc)
+    jp = (jax.tree_util.tree_map_with_path(
+        lambda path, x: x if any(s in jax.tree_util.keystr(path)
+                                 for s in ("gate", "pos_embed']['pos_embed",
+                                           "pos_embed_input']['pos_embed"))
+        else x.astype(jnp.bfloat16), p32) if dtype == "bf16" else p32)
+    batch = _batch(rng)
+    t = np.array([875.0, 312.5], np.float32)
+    jkw = dict({k: jnp.asarray(v, jdt) for k, v in batch.items()},
+               timestep=jnp.asarray(t, jdt), conditioning_scale=0.7)
+    tkw = dict({k: torch.from_numpy(v).to(tdt) for k, v in batch.items()},
+               timestep=torch.from_numpy(t).to(tdt), conditioning_scale=0.7)
+    tp = to_torch_tree(jp)
+    tpred = t_usd3.unigen_base_forward(tp, tc, **tkw)[0]
+    assert tpred.dtype == tdt
+    if dtype == "fp32":
+        jpred, _, jo = _jit_base_forward(jp, jc, return_control_residuals=True,
+                                         control_residuals_bits=8, **jkw)
+        tres = t_usd3.unigen_base_forward(tp, tc, return_control_residuals=True,
+                                          control_residuals_bits=8,
+                                          **tkw)[2]["control_residuals"]
+        jres = jo["control_residuals"]
+        assert set(tres) == set(jres) == {"q", "s"}
+        step = np.asarray(jres["s"])          # one int8 code, per token
+        diff = np.abs(tres["q"].numpy().astype(np.float32) * tres["s"].numpy()
+                      - np.asarray(jres["q"], np.float32) * step)
+        assert np.all(diff <= 1.01 * step + 1e-7)
+        assert rel_l2(tpred, jpred) <= 5e-3
+        trep = t_usd3.unigen_base_forward(tp, tc, control_residuals=tres, **tkw)[0]
+        assert rel_l2(trep, tpred) <= REPLAY_REL_L2[8]
+    else:
+        jpred = _jit_base_forward(jp, jc, **jkw)[0]
+        assert rel_l2(tpred, jpred) <= 2e-2
+        cap, _, outs = t_usd3.unigen_base_forward(tp, tc, return_control_residuals=True,
+                                                  **tkw)
+        res = outs["control_residuals"]
+        assert res.shape == (2, 2, S, D)
+        rep = t_usd3.unigen_base_forward(tp, tc, control_residuals=res, **tkw)[0]
+        assert torch.equal(cap, tpred) and torch.equal(rep, tpred)
+    want = jax.eval_shape(lambda k: j_usd3.init_unigen_sd3_params(
+        k, jc, base_variant=True), jax.random.PRNGKey(0))
+    want = {jax.tree_util.keystr(p, simple=True, separator="."): tuple(x.shape)
+            for p, x in jax.tree_util.tree_leaves_with_path(want)}
+    got = {".".join(p): tuple(x.shape) for p, x in tree_leaves_with_path(
+        t_usd3.init_unigen_sd3_params(tc, device="meta", base_variant=True))}
+    assert got == want

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
-from torch_port_helpers import to_torch_tree
+from torch_port_helpers import to_jax_tree, to_torch_tree
 from unigen_tpu import config as jcfg
 from unigen_tpu.models import vae as j_vae
 from unigen_tpu.models.unigen_flux import init_unigen_flux_params
@@ -572,8 +572,9 @@ def test_warmup_then_serve():
 
 
 def test_refusals():
-    """The JAX server's knob assertions, and the parts that wait for later
-    slices: the sana family (Queue 1 item 7) and mesh= (item 8)."""
+    """The JAX server's knob assertions (a sana server needs its latent
+    codec, a sana request takes no guidance), and the part that waits for
+    a later slice: mesh= (item 8)."""
     world = _flux_world()
     *_, tc, tp, tv, tvp = world
     for kw, match in ((dict(model_cache_interval=2, model_cache_threshold=0.02),
@@ -589,9 +590,13 @@ def test_refusals():
     with pytest.raises(AssertionError, match="per-sample MoE routing"):
         StepServer(tcfg.UniGenConfig(family="flux", flux=tc.flux), tp, tv, tvp,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(AssertionError, match="DC-AE codec"):
         StepServer(tcfg.UniGenConfig(family="sana", control=tc.control), tp, tv, tvp,
                    device="cpu")
+    srv = _sana_port(batch_size=1, num_inference_steps=1)
+    with pytest.raises(ValueError, match="without guidance"):
+        srv.submit(**_sana_request(0), guidance_scale=3.0)
+    srv.close()
     with pytest.raises(NotImplementedError, match="item 8"):
         _port(world, mesh=object())
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -788,3 +793,140 @@ def test_closed_server_is_freed_without_the_collector(family):
     finally:
         if was:
             gc.enable()
+
+
+# ------------------------------------------------------------ sana
+
+SANA_RES = 32    # tiny DC-AE downscale 4: 8x8 latents
+
+
+@functools.lru_cache(maxsize=None)
+def _sana_world():
+    """(JAX cfg, JAX params, JAX DC-AE, port cfg, port params, port DC-AE):
+    the port's tiny SANA tree (per-sample routing, random add linears) and
+    DC-AE, the same leaves for JAX."""
+    from unigen_tpu_torch.models import dcae as t_dcae
+    from unigen_tpu_torch.models.sana import init_sana_unigen_params
+    kw = dict(condition_types=("canny",))
+    jc = jcfg.UniGenConfig(family="sana", sana=jcfg.tiny_sana_config(),
+                           control=jcfg.ControlConfig(moe=jcfg.MoEConfig(
+                               batch_mode="per_sample")), **kw)
+    tc = tcfg.UniGenConfig(family="sana", sana=tcfg.tiny_sana_config(),
+                           control=tcfg.ControlConfig(moe=tcfg.MoEConfig(
+                               batch_mode="per_sample")), **kw)
+    g = torch.Generator().manual_seed(0)
+    tp = init_sana_unigen_params(tc, gen=g, device="cpu")
+    tp["control"]["add_blocks"]["w"].uniform_(-0.2, 0.2, generator=g)
+    ae = t_dcae.init_dcae_params(t_dcae.tiny_dcae_config(), gen=g, device="cpu")
+    return jc, to_jax_tree(tp), to_jax_tree(ae), tc, tp, ae
+
+
+def _sana_request(i):
+    bb = tcfg.tiny_sana_config()
+    r = np.random.default_rng(2000 + i)
+    mask = np.zeros((1, 6), np.int32)
+    mask[0, :2 + i % 4] = 1
+    return dict(prompt_embeds=r.standard_normal((1, 6, bb.caption_channels), np.float32),
+                prompt_mask=mask,
+                pooled=r.standard_normal((1, bb.pooled_projection_dim), np.float32),
+                cond_pooled=r.standard_normal((1, bb.pooled_projection_dim), np.float32),
+                control_pixels=r.uniform(-1, 1, (1, 3, SANA_RES, SANA_RES)).astype(np.float32),
+                latents=r.standard_normal((1, bb.in_channels, 8, 8), np.float32))
+
+
+def _sana_codec(jax_side=False):
+    jc, _, jae, _, _, ae = _sana_world()
+    if jax_side:
+        from unigen_tpu.models import dcae as j_dcae
+        cfg = j_dcae.tiny_dcae_config()
+        return dict(ae_encode=lambda px: j_dcae.dcae_encode(jae, cfg, px),
+                    ae_decode=lambda z: j_dcae.dcae_decode(jae, cfg, z),
+                    ae_downscale=cfg.downscale)
+    from unigen_tpu_torch.models import dcae as t_dcae
+    cfg = t_dcae.tiny_dcae_config()
+    return dict(ae_encode=functools.partial(t_dcae.dcae_encode, ae, cfg),
+                ae_decode=functools.partial(t_dcae.dcae_decode, ae, cfg),
+                ae_downscale=cfg.downscale)
+
+
+def _sana_port(**kw):
+    *_, tc, tp, _ = _sana_world()
+    kw.setdefault("batch_size", 4)
+    return StepServer(tc, tp, height=SANA_RES, width=SANA_RES, dtype=torch.float32,
+                      device="cpu", **_sana_codec(), **kw)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(control_cache_interval=4, model_cache_interval=2,
+                                            residual_cache_bits=8)])
+def test_sana_matches_jax_step_server(knobs):
+    """The sana family against JAX's StepServer fed the same requests, with
+    per-request padding masks: uint8 within one code, the same row counts."""
+    jc, jp, *_ = _sana_world()
+    reqs = [_sana_request(i) for i in range(3)]
+    jsrv = JServer(jc, jp, batch_size=4, height=SANA_RES, width=SANA_RES,
+                   num_inference_steps=5, dtype=jnp.float32, **_sana_codec(True), **knobs)
+    want, jst = _serve(jsrv, [_jax_req(r) for r in reqs])
+    got, st = _serve(_sana_port(num_inference_steps=5, **knobs), reqs)
+    _assert_codes(got, want)
+    assert got[0].shape == (1, SANA_RES, SANA_RES, 3)
+    for key in ("retired", "rows_full", "rows_base", "rows_refresh"):
+        assert st[key] == jst[key], (key, st, jst)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(control_cache_interval=4, model_cache_interval=2)])
+def test_sana_server_equals_own_pipeline(knobs):
+    """chip_smoke's stepserve_sana_check on the CPU: the server's final
+    latents against UniGenSanaPipeline.generate of the same requests at the
+    same shapes (exact: every tick over all slots against b=4; the hybrid:
+    one-row gathered forwards against b=1), bit for bit; the server's
+    timesteps are divided by 1000 as the pipeline divides them. The
+    control pixels are bf16 values (the pipeline casts them to its dtype,
+    the server does not)."""
+    import dataclasses as dc
+    from unigen_tpu_torch.pipelines.sana import UniGenSanaPipeline
+    from unigen_tpu_torch.utils import tree_map
+    *_, tc, tp, _ = _sana_world()
+    # a bf16 tree with the router fp32, as the serving trees are
+    tp = dict(tree_map(lambda t: t.bfloat16(), tp))
+    tp["control"] = dict(tp["control"], moe=dict(
+        tp["control"]["moe"], gate=_sana_world()[4]["control"]["moe"]["gate"]))
+    reqs = []
+    for i in range(4):
+        r = {k: torch.from_numpy(v) for k, v in _sana_request(10 + i).items()}
+        r["control_pixels"] = r["control_pixels"].bfloat16().float()
+        reqs.append({k: (v.bfloat16() if v.is_floating_point() and k != "control_pixels"
+                         else v) for k, v in r.items()})
+    srv = StepServer(tc, tp, height=SANA_RES, width=SANA_RES, batch_size=4,
+                     num_inference_steps=4, device="cpu", **_sana_codec(), **knobs)
+    try:
+        finals, calls, stats, _ = chip_smoke.serve_at_reference_shapes(srv, reqs, knobs)
+        assert chip_smoke.at_reference_shapes(srv, knobs, calls, stats)
+    finally:
+        srv.close()
+    pipe = UniGenSanaPipeline(cfg=tc, params=tp, dtype=torch.bfloat16, device="cpu",
+                              **_sana_codec())
+    assert dc.is_dataclass(pipe)
+    ref_lat, ref_img = chip_smoke.sana_pipeline_finals(torch, pipe, reqs, knobs, SANA_RES, 4,
+                                                       4 if not knobs else 1)
+    rels, codes = chip_smoke.compare_finals(torch, reqs, finals, ref_lat, ref_img)
+    assert max(rels) == 0 and max(codes) == 0, (rels, codes)
+
+
+def test_sana_warmup_and_multires():
+    """warmup at the sana text length (a padding mask of ones), and a
+    MultiResolutionStepServer of sana buckets routed by the control image."""
+    srv = _sana_port(batch_size=2, num_inference_steps=1)
+    assert srv.warmup(6, rounds=1) == 2
+    srv.close()
+    *_, tc, tp, _ = _sana_world()
+    multi = MultiResolutionStepServer(tc, tp, buckets={32: {}, 64: dict(batch_size=1)},
+                                      num_inference_steps=1, dtype=torch.float32,
+                                      device="cpu", **_sana_codec())
+    try:
+        r = _sana_request(3)
+        r64 = dict(r, control_pixels=np.zeros((1, 3, 64, 64), np.float32),
+                   latents=np.zeros((1, 4, 16, 16), np.float32))
+        assert multi.submit(**r).result(timeout=300).shape == (1, 32, 32, 3)
+        assert multi.submit(**r64).result(timeout=300).shape == (1, 64, 64, 3)
+    finally:
+        multi.close()

@@ -15,6 +15,19 @@ def to_torch_tree(tree):
     return tree_from_numpy(jax.tree.map(np.asarray, tree), device="cpu")
 
 
+def to_jax_tree(tree):
+    """A port tree of CPU tensors (dicts and lists) -> the same leaves as
+    JAX arrays: the port's inits are fast where JAX's eager inits of the
+    tiny trees take seconds, so several tests draw a tree here and hand it
+    to JAX (each holds the layout against JAX's init by ``jax.eval_shape``
+    or by its own JAX calls)."""
+    if isinstance(tree, dict):
+        return {k: to_jax_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_jax_tree(v) for v in tree]
+    return jnp.asarray(tree.numpy())
+
+
 def pair(a, dtype=np.float32):
     """The same numpy values as (jax array, torch tensor)."""
     a = np.asarray(a, dtype)

@@ -1,8 +1,8 @@
-"""Config dataclasses of the FLUX and SD3 families (a copy of
+"""Config dataclasses of the FLUX, SD3 and SANA families (a copy of
 ``unigen_tpu/config.py``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-Only the pieces the port reads are here: the FLUX and SD3 backbones, the
+Only the pieces the port reads are here: the FLUX, SD3 and SANA backbones, the
 control branch with its MoE, the model config that joins them, and the
 training hyperparameters.
 """
@@ -60,6 +60,29 @@ class SD3BackboneConfig:
 
 
 @dataclass(frozen=True)
+class SanaBackboneConfig:
+    """SANA linear-attention DiT backbone hyperparameters (the defaults are
+    Sana_1600M_1024px's transformer config)."""
+    in_channels: int = 32
+    out_channels: int = 32
+    num_layers: int = 20
+    attention_head_dim: int = 32
+    num_attention_heads: int = 70
+    num_cross_attention_heads: int = 20
+    cross_attention_head_dim: int = 112
+    cross_attention_dim: int = 2240
+    caption_channels: int = 2304
+    mlp_ratio: float = 2.5
+    patch_size: int = 1
+    sample_size: int = 32
+    pooled_projection_dim: int = 768       # pooled embed dim of the MoE streams
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+@dataclass(frozen=True)
 class MoEConfig:
     """Condition-expert MoE: GShard top-1 routing with a static capacity.
 
@@ -110,10 +133,11 @@ class ControlConfig:
 
 @dataclass(frozen=True)
 class UniGenConfig:
-    """Backbone family (flux | sd3) + control branch + condition types."""
+    """Backbone family (flux | sd3 | sana) + control branch + condition types."""
     family: str = "flux"
     flux: FluxBackboneConfig = field(default_factory=FluxBackboneConfig)
     sd3: SD3BackboneConfig = field(default_factory=SD3BackboneConfig)
+    sana: SanaBackboneConfig = field(default_factory=SanaBackboneConfig)
     control: ControlConfig = field(default_factory=ControlConfig)
     condition_types: Tuple[str, ...] = ("canny",)
 
@@ -123,7 +147,7 @@ class UniGenConfig:
 
     @property
     def backbone(self):
-        return {"flux": self.flux, "sd3": self.sd3}[self.family]
+        return {"flux": self.flux, "sd3": self.sd3, "sana": self.sana}[self.family]
 
 
 @dataclass(frozen=True)
@@ -207,6 +231,19 @@ def tiny_sd3_config(**overrides) -> SD3BackboneConfig:
     )
     base.update(overrides)
     return SD3BackboneConfig(**base)
+
+
+def tiny_sana_config(**overrides) -> SanaBackboneConfig:
+    """A miniature SANA config for tests (same topology, tiny dims)."""
+    base = dict(
+        in_channels=4, out_channels=4, num_layers=2, attention_head_dim=8,
+        num_attention_heads=4, num_cross_attention_heads=2,
+        cross_attention_head_dim=16, cross_attention_dim=32,
+        caption_channels=24, mlp_ratio=2.5, patch_size=1, sample_size=8,
+        pooled_projection_dim=16,
+    )
+    base.update(overrides)
+    return SanaBackboneConfig(**base)
 
 
 def replace(cfg, **kw):

@@ -19,7 +19,11 @@ bench's direct quantized init: the W4A8 serving tree's shapes come from the
 port's own init and quantize run on the meta device, and each leaf is filled
 on the target device (uniform int8 codes, ``w_scale`` in [1e-4, 1e-3],
 float leaves N(0, 0.02)), so the bf16 source tree is never built.
-``init_sd3_serving_params`` does the same for the bf16 UniGen-SD3 tree.
+``init_sd3_serving_params`` does the same for the bf16 UniGen-SD3 tree
+(the interleaved one, or the UniGenBase variant's), and
+``init_sana_serving_params`` for the bf16 UniGen-SANA tree. The Gemma-2
+and DC-AE trees of the JAX package move by ``tree_from_numpy`` as the
+others do (Gemma's layers are a list, the DC-AE's stages lists of lists).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from unigen_tpu_torch.config import UniGenConfig
+from unigen_tpu_torch.models.sana import init_sana_unigen_params
 from unigen_tpu_torch.models.unigen_flux import init_unigen_flux_params
 from unigen_tpu_torch.models.unigen_sd3 import init_unigen_sd3_params
 from unigen_tpu_torch.ops.packing import sincos_2d_pos_embed
@@ -107,22 +112,9 @@ def init_quantized_serving_params(cfg: UniGenConfig, device=None,
     return walk(shapes)
 
 
-def init_sd3_serving_params(cfg: UniGenConfig, seed: int = 0, device=None,
-                            dtype=torch.bfloat16) -> dict:
-    """Random UniGen-SD3 serving tree in the exact layout of
-    ``init_unigen_sd3_params(cfg, dtype=dtype)`` (shapes from the meta
-    device), filled leaf by leaf on ``device`` from ``seed``: the sincos
-    position tables computed (fp32), norm scales one, every other leaf
-    N(0, 0.02) in its dtype (the router gate stays fp32; the zero-init add
-    linears are filled too, so the control branch reaches the output)."""
-    dev = resolve_device(device)
-    gen = (None if dev.type == "meta"           # shapes only
-           else torch.Generator(device=dev).manual_seed(seed))
-    bb = cfg.sd3
-    table = sincos_2d_pos_embed(bb.inner_dim, bb.pos_embed_max_size,
-                                bb.sample_size // bb.patch_size, device=dev)
-    shapes = init_unigen_sd3_params(cfg, device="meta", dtype=dtype)
-
+def _filled(shapes, dev, gen, table=None):
+    """Each leaf of a meta tree on ``dev``: ``pos_embed`` the given table,
+    a norm ``scale`` one, any other N(0, 0.02) in its dtype."""
     def fill(name, meta):
         if name == "pos_embed":
             return table.clone()
@@ -137,3 +129,34 @@ def init_sd3_serving_params(cfg: UniGenConfig, seed: int = 0, device=None,
             return [walk(v) for v in node]
         return fill(name, node)
     return walk(shapes)
+
+
+def init_sd3_serving_params(cfg: UniGenConfig, seed: int = 0, device=None,
+                            dtype=torch.bfloat16, base_variant: bool = False) -> dict:
+    """Random UniGen-SD3 serving tree in the exact layout of
+    ``init_unigen_sd3_params(cfg, dtype=dtype, base_variant=base_variant)``
+    (shapes from the meta device), filled leaf by leaf on ``device`` from
+    ``seed``: the sincos position tables computed (fp32), norm scales one,
+    every other leaf N(0, 0.02) in its dtype (the router gate stays fp32;
+    the zero-init add linears are filled too, so the control branch reaches
+    the output)."""
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"           # shapes only
+           else torch.Generator(device=dev).manual_seed(seed))
+    bb = cfg.sd3
+    table = sincos_2d_pos_embed(bb.inner_dim, bb.pos_embed_max_size,
+                                bb.sample_size // bb.patch_size, device=dev)
+    return _filled(init_unigen_sd3_params(cfg, device="meta", dtype=dtype,
+                                          base_variant=base_variant), dev, gen, table)
+
+
+def init_sana_serving_params(cfg: UniGenConfig, seed: int = 0, device=None,
+                             dtype=torch.bfloat16) -> dict:
+    """Random UniGen-SANA serving tree in the exact layout of
+    ``init_sana_unigen_params(cfg, dtype=dtype)``, filled leaf by leaf on
+    ``device`` from ``seed`` as ``init_sd3_serving_params`` fills (the
+    zero-init add linears too; the router gate fp32)."""
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    return _filled(init_sana_unigen_params(cfg, device="meta", dtype=dtype), dev, gen)

@@ -21,6 +21,7 @@ port's parameter trees (port of ``unigen_tpu/io/torch_bridge.py``).
   load_clip_text          transformers CLIPTextModel(WithProjection)
   load_t5_encoder         transformers T5EncoderModel
   load_vae                diffusers AutoencoderKL
+  load_gemma_text         transformers Gemma2Model (SANA's prompt encoder)
 
 Conventions, as the JAX package's: a Linear [out, in] -> {"w": [in, out]},
 LayerNorm weight/bias -> scale/bias, RMSNorm weight -> scale, Conv2d OIHW
@@ -755,3 +756,31 @@ def load_vae(sd, block_out_channels=(128, 256, 512, 512), layers_per_block: int 
 
     return {"encoder": half("encoder", "down", layers_per_block, "downsamplers"),
             "decoder": half("decoder", "up", layers_per_block + 1, "upsamplers")}
+
+
+# ------------------------------------------------------------ Gemma-2 (SANA)
+
+def load_gemma_text(sd, num_layers: int = 26, *, dtype=torch.float32,
+                    device=None) -> dict:
+    """transformers Gemma2Model state dict -> the models/gemma_text tree (a
+    list of layers, as JAX keeps it)."""
+    put = _Put(resolve_device(device), dtype)
+    pre = "model." if any(k.startswith("model.") for k in sd) else ""
+
+    def layer(i):
+        p = f"{pre}layers.{i}"
+        return {"input_ln": _rms(sd, f"{p}.input_layernorm", put),
+                "post_attn_ln": _rms(sd, f"{p}.post_attention_layernorm", put),
+                "pre_ff_ln": _rms(sd, f"{p}.pre_feedforward_layernorm", put),
+                "post_ff_ln": _rms(sd, f"{p}.post_feedforward_layernorm", put),
+                "attn": {"q": _lin(sd, f"{p}.self_attn.q_proj", put),
+                         "k": _lin(sd, f"{p}.self_attn.k_proj", put),
+                         "v": _lin(sd, f"{p}.self_attn.v_proj", put),
+                         "o": _lin(sd, f"{p}.self_attn.o_proj", put)},
+                "gate": _lin(sd, f"{p}.mlp.gate_proj", put),
+                "up": _lin(sd, f"{p}.mlp.up_proj", put),
+                "down": _lin(sd, f"{p}.mlp.down_proj", put)}
+
+    return {"embed": put(sd[f"{pre}embed_tokens.weight"]),
+            "layers": [layer(i) for i in range(num_layers)],
+            "final_ln": _rms(sd, f"{pre}norm", put)}

@@ -1,7 +1,6 @@
-"""Checkpoint bridge for the SD3 / SD3.5 transformer and its UniGen adapter
-(port of the SD3 half of ``unigen_tpu/io/torch_bridge_sd3.py``; the same
-conventions as ``io/torch_bridge``). SANA's loaders come with the SANA
-slice.
+"""Checkpoint bridge for the SD3 / SD3.5 and SANA transformers and their
+UniGen adapters (port of ``unigen_tpu/io/torch_bridge_sd3.py``; the same
+conventions as ``io/torch_bridge``).
 """
 
 from __future__ import annotations
@@ -10,7 +9,7 @@ from typing import Optional
 
 import torch
 
-from unigen_tpu_torch.config import SD3BackboneConfig
+from unigen_tpu_torch.config import SanaBackboneConfig, SD3BackboneConfig
 from unigen_tpu_torch.io.torch_bridge import (_gate_prefix, _lin, _modulated_experts,
                                               _Put, _rms, _stack)
 from unigen_tpu_torch.utils import resolve_device
@@ -163,4 +162,75 @@ def load_sd3_unigen_adapter(sd, cfg: SD3BackboneConfig, n_cn: int, num_experts: 
             "weave_text": _sd3_block(sd, "shared_expert.1", put, dual=True, last=True,
                                      qk_norm=cfg.qk_norm),
         }
+    return ctrl
+
+
+# ------------------------------------------------------------ SANA
+
+def _sana_block(sd, p, put):
+    """A diffusers SanaTransformerBlock: the GLUMBConv's 1x1 convs read as
+    linears, its depthwise [2H, 1, 3, 3] kernel as HWIO [3, 3, 1, 2H]."""
+    return {
+        "scale_shift_table": put(sd[f"{p}.scale_shift_table"]),
+        "attn1": {"to_q": _lin(sd, f"{p}.attn1.to_q", put),
+                  "to_k": _lin(sd, f"{p}.attn1.to_k", put),
+                  "to_v": _lin(sd, f"{p}.attn1.to_v", put),
+                  "to_out": _lin(sd, f"{p}.attn1.to_out.0", put)},
+        "attn2": {"to_q": _lin(sd, f"{p}.attn2.to_q", put),
+                  "to_k": _lin(sd, f"{p}.attn2.to_k", put),
+                  "to_v": _lin(sd, f"{p}.attn2.to_v", put),
+                  "to_out": _lin(sd, f"{p}.attn2.to_out.0", put)},
+        "ff": {"inverted": _conv1x1_lin(sd, f"{p}.ff.conv_inverted", put),
+               "depth": {"w": put(sd[f"{p}.ff.conv_depth.weight"], perm=(2, 3, 1, 0)),
+                         "b": put(sd[f"{p}.ff.conv_depth.bias"])},
+               "point": _conv1x1_lin(sd, f"{p}.ff.conv_point", put, bias=False)},
+    }
+
+
+def _adaln_single(sd, p, put):
+    return {"timestep": {"fc1": _lin(sd, f"{p}.emb.timestep_embedder.linear_1", put),
+                         "fc2": _lin(sd, f"{p}.emb.timestep_embedder.linear_2", put)},
+            "linear": _lin(sd, f"{p}.linear", put)}
+
+
+def load_sana_transformer(sd, cfg: SanaBackboneConfig, *, dtype=torch.bfloat16,
+                          device=None) -> dict:
+    """diffusers SanaTransformer2DModel state dict -> the models/sana tree."""
+    put = _Put(resolve_device(device), dtype)
+    return {
+        "patch_embed": _patch_proj(sd, "patch_embed.proj", put, cfg.inner_dim),
+        "time_embed": _adaln_single(sd, "time_embed", put),
+        "caption_projection": {"fc1": _lin(sd, "caption_projection.linear_1", put),
+                               "fc2": _lin(sd, "caption_projection.linear_2", put)},
+        "caption_norm": _rms(sd, "caption_norm", put),
+        "blocks": _stack(cfg.num_layers,
+                         lambda i: _sana_block(sd, f"transformer_blocks.{i}", put)),
+        "scale_shift_table": put(sd["scale_shift_table"]),
+        "proj_out": _lin(sd, "proj_out", put),
+    }
+
+
+def load_sana_unigen_adapter(sd, cfg: SanaBackboneConfig, n_cn: int, num_experts: int,
+                             *, dtype=torch.bfloat16, device=None) -> dict:
+    """The reference SANAUniGen trainable_control_modules state dict (names
+    rooted at control_* / moe / shared_expert) -> the control tree; the
+    modulated experts where the checkpoint has them."""
+    put = _Put(resolve_device(device), dtype)
+    ctrl = {
+        "pos_embed_input": _patch_proj(sd, "control_pos_embed_input.proj", put,
+                                       cfg.inner_dim),
+        "condition_embed": _adaln_single(sd, "control_condition_embed", put),
+        "context_embedder": _lin(sd, "control_context_embedder", put),
+        "blocks": _stack(n_cn, lambda i: _sana_block(
+            sd, f"control_transformer_blocks.{i}", put)),
+        "add_blocks": _stack(n_cn, lambda i: _lin(sd, f"controlnet_add_blocks.{i}", put)),
+    }
+    prefix = _gate_prefix(sd)
+    moe = {"gate": {"w": put(sd[prefix + "gate.wg.weight"], torch.float32, (1, 0))}}
+    if f"{prefix}experts.deepspeed_experts.0.0.0.weight" in sd:
+        moe["experts"] = _modulated_experts(sd, prefix, put, num_experts)
+    ctrl["moe"] = moe
+    if "shared_expert.0.scale_shift_table" in sd:
+        ctrl["shared_expert"] = {"block0": _sana_block(sd, "shared_expert.0", put),
+                                 "block1": _sana_block(sd, "shared_expert.1", put)}
     return ctrl

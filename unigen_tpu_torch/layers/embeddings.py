@@ -1,5 +1,5 @@
-"""Timestep, pooled-text and SD3 patch embedders (port of
-``unigen_tpu/layers/embeddings.py``, the FLUX and SD3 parts)."""
+"""Timestep, pooled-text, SANA caption and SD3 patch embedders (port of
+``unigen_tpu/layers/embeddings.py``)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from unigen_tpu_torch.layers.core import init_linear, linear
+from unigen_tpu_torch.layers.core import gelu_tanh, init_linear, linear
 from unigen_tpu_torch.ops.packing import (cropped_pos_embed, patchify,
                                           sincos_2d_pos_embed)
 
@@ -34,6 +34,12 @@ def init_timestep_embedder(in_dim: int, dim: int, **kw) -> dict:
 
 def timestep_embedder(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["fc2"], F.silu(linear(p["fc1"], x)))
+
+
+def pixart_text_projection(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """diffusers ``PixArtAlphaTextProjection`` at its default GELU(tanh), the
+    SANA caption projection (not ``timestep_embedder``'s SiLU)."""
+    return linear(p["fc2"], gelu_tanh(linear(p["fc1"], x)))
 
 
 def init_combined_time_text(dim: int, pooled_dim: int, *,

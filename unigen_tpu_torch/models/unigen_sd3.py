@@ -14,7 +14,15 @@ KV-append condition tokens into the NEXT base block's attention, whose
 ``condition_k``/``condition_v`` projections live in ``control["cross_kv"]``.
 Timesteps are on the 0..1000 scale. ``control_residuals`` /
 ``return_control_residuals`` replay and capture the control blocks'
-outputs for the step caches; the UniGenBase variant is not ported.
+outputs for the step caches.
+
+``unigen_base_forward`` is the UniGenBase variant (a separate control
+branch): two preprocess weave blocks, the MoE and the n_cn control blocks
+run once and give per-block residuals (after the add linear, unscaled),
+which the base pass adds, or attends to under ``CrossAttn``, at
+int(i / interval), times the scale. Its step cache is that residual stack;
+a replay runs the base pass alone. Its control tree comes from
+``init_unigen_sd3_control(..., base_variant=True)``.
 """
 
 from __future__ import annotations
@@ -56,14 +64,21 @@ def _n_control(cfg: UniGenConfig) -> int:
 
 def init_unigen_sd3_control(cfg: UniGenConfig, *, gen=None, device=None,
                             dtype=torch.float32,
-                            base_params: Optional[dict] = None) -> dict:
+                            base_params: Optional[dict] = None,
+                            base_variant: bool = False) -> dict:
     """The adapter tree of the interleaved UniGenSD3 (the context embedder
-    maps d -> d); warm-started from ``base_params`` when given."""
+    maps d -> d); warm-started from ``base_params`` when given. With
+    ``base_variant`` the UniGenBase tree: the context embedder maps
+    joint_dim -> d, the two ``preprocess_block`` weave blocks exist, the
+    control blocks are single blocks (``single_control_blocks``) when
+    ``use_encoder_hidden_states`` is off, and ``use_pos_embed`` adds the
+    target stream's own patch embed."""
     bb, cc = cfg.sd3, cfg.control
     d, heads, hd = bb.inner_dim, bb.num_attention_heads, bb.attention_head_dim
     n_cn = _n_control(cfg)
     kw = dict(gen=gen, device=device, dtype=dtype)
     modulated = cc.use_modulate or cc.use_rope
+    joint_control = cc.use_encoder_hidden_states or not base_variant
     p: Dict[str, Any] = {
         "pos_embed_input": init_patch_embed(
             bb.patch_size, bb.in_channels + cc.extra_conditioning_channels, d,
@@ -71,9 +86,12 @@ def init_unigen_sd3_control(cfg: UniGenConfig, *, gen=None, device=None,
             pos_embed_type=(None if cc.use_rope else "sincos"), **kw),
         "time_text_embed": init_combined_time_text(d, bb.pooled_projection_dim, **kw),
         "condition_embed": init_combined_time_text(d, bb.pooled_projection_dim, **kw),
-        "context_embedder": init_linear(d, d, **kw),
-        "joint_blocks": init_stacked(n_cn, lambda: init_sd3_joint_block(
-            d, heads, hd, qk_norm=bb.qk_norm, **kw)),
+        "context_embedder": init_linear(
+            bb.joint_attention_dim if base_variant else d, d, **kw),
+        ("joint_blocks" if joint_control else "single_control_blocks"): init_stacked(
+            n_cn, (lambda: init_sd3_joint_block(d, heads, hd, qk_norm=bb.qk_norm, **kw))
+            if joint_control else
+            (lambda: init_sd3_single_block(d, heads, hd, qk_norm=bb.qk_norm, **kw))),
         "add_blocks": init_stacked(n_cn, lambda: init_linear(d, d, zero=True, **kw)),
         "moe": moe_lib.init_moe_params(
             d, bb.pooled_projection_dim, cc.moe.num_experts(cfg.condition_nums),
@@ -89,6 +107,16 @@ def init_unigen_sd3_control(cfg: UniGenConfig, *, gen=None, device=None,
                                                use_dual_attention=True,
                                                qk_norm=bb.qk_norm, **kw),
         }
+    if base_variant and cc.use_pos_embed:
+        # the target stream's own trainable patch embed
+        p["pos_embed"] = init_patch_embed(
+            bb.patch_size, bb.in_channels, d, bb.pos_embed_max_size,
+            bb.sample_size // bb.patch_size,
+            pos_embed_type=(None if cc.use_rope else "sincos"), **kw)
+    if base_variant:
+        p["preprocess_block"] = {
+            "b0": init_sd3_joint_block(d, heads, hd, qk_norm=bb.qk_norm, **kw),
+            "b1": init_sd3_joint_block(d, heads, hd, qk_norm=bb.qk_norm, **kw)}
     if cc.cn2base_method == "CrossAttn":
         # trainable KV-append projections on every base block's attention
         def cross():
@@ -119,14 +147,17 @@ def warm_start_sd3_control(control: dict, base: dict) -> dict:
             control["pos_embed_input"] = dict(control["pos_embed_input"])
             control["pos_embed_input"]["proj"] = tree_map(
                 torch.clone, base["pos_embed"]["proj"])
+    if "pos_embed" in control and "pos_embed" in base:
+        control["pos_embed"] = dict(control["pos_embed"])
+        control["pos_embed"]["proj"] = tree_map(torch.clone, base["pos_embed"]["proj"])
     return control
 
 
 def init_unigen_sd3_params(cfg: UniGenConfig, *, gen=None, device=None,
-                           dtype=torch.float32) -> dict:
+                           dtype=torch.float32, base_variant: bool = False) -> dict:
     base = init_sd3_params(cfg.sd3, gen=gen, device=device, dtype=dtype)
     control = init_unigen_sd3_control(cfg, gen=gen, device=device, dtype=dtype,
-                                      base_params=base)
+                                      base_params=base, base_variant=base_variant)
     return {"base": base, "control": control}
 
 
@@ -264,6 +295,121 @@ def unigen_sd3_forward(params: dict, cfg: UniGenConfig, hidden, condition,
     if return_control_residuals:
         add_outputs["control_residuals"] = stack_residuals(cn_ys)
     return (out, {"moe_loss": pre.aux_loss * cc.moe.aux_loss_weight}, add_outputs)
+
+
+def unigen_base_forward(params: dict, cfg: UniGenConfig, hidden, condition, encoder,
+                        pooled, condition_pooled, timestep, *,
+                        conditioning_scale=1.0, training: bool = False,
+                        control_residuals=None,
+                        return_control_residuals: bool = False,
+                        control_residuals_bits: int = 16):
+    """The UniGenBase forward: the control branch runs once (a trainable or
+    the base's patch embed of the target, the condition patch embed, the
+    preprocess weave text <-> hidden then [hidden | text] <-> condition, the
+    MoE with the shared-expert weave, the n_cn control blocks, each followed
+    by its add linear) and gives the residual stack [n_cn, B, S, D]; the
+    base pass consumes residual int(i / interval) at base block i, times
+    the scale. Arguments and outputs as ``unigen_sd3_forward``'s.
+
+    The step cache is that post-add-linear, unscaled stack (at 16, 8 or 4
+    bits); ``control_residuals`` replays it through the base pass alone, so
+    a replay picks up the live conditioning scale."""
+    reuse = control_residuals is not None
+    if reuse and return_control_residuals:
+        raise ValueError("pass either control_residuals or "
+                         "return_control_residuals, not both")
+    if control_residuals_bits not in (4, 8, 16):
+        raise ValueError(f"control_residuals_bits must be 4, 8 or 16, "
+                         f"got {control_residuals_bits}")
+    scale = torch.as_tensor(conditioning_scale, dtype=hidden.dtype,
+                            device=hidden.device)
+    if reuse:
+        n = (next(iter(control_residuals.values())).shape[0]
+             if isinstance(control_residuals, dict) else control_residuals.shape[0])
+        residuals = []
+        for i in range(n):
+            r = residual_at(control_residuals, i)
+            residuals.append(dequantize_residual(r, hidden.dtype)
+                             if isinstance(r, dict) else r)
+        out = _base_pass_sd3(params, cfg, hidden, encoder, pooled, timestep,
+                             residuals, scale)
+        return (out, {"moe_loss": torch.zeros((), dtype=torch.float32,
+                                              device=out.device)},
+                {"expert_counts": None})
+
+    base, ctrl = params["base"], params["control"]
+    bb, cc = cfg.sd3, cfg.control
+    heads, dtype = bb.num_attention_heads, hidden.dtype
+    ctrl_hidden = patch_embed(ctrl.get("pos_embed", base["pos_embed"]), hidden,
+                              bb.patch_size, bb.pos_embed_max_size)
+    cond_tokens = patch_embed(ctrl["pos_embed_input"], condition, bb.patch_size,
+                              bb.pos_embed_max_size)
+    ctrl_pooled = pooled if cc.use_pooled_prompt_embeds else torch.zeros_like(pooled)
+    t = timestep.to(torch.float32)
+    control_temb = combined_time_text(ctrl["time_text_embed"], t, ctrl_pooled,
+                                      dtype=dtype)
+    cond_temb = combined_time_text(ctrl["condition_embed"], t, condition_pooled,
+                                   dtype=dtype)
+    control_enc = linear(ctrl["context_embedder"], encoder)
+
+    # the preprocess weave: text <-> hidden, then [hidden | text] <-> condition
+    pb = ctrl["preprocess_block"]
+    control_enc, ctrl_hidden = sd3_joint_block(pb["b0"], ctrl_hidden, control_enc,
+                                               control_temb, heads=heads)
+    s_h = ctrl_hidden.shape[1]
+    cond_tokens, he = sd3_joint_block(pb["b1"],
+                                      torch.cat([ctrl_hidden, control_enc], dim=1),
+                                      cond_tokens, cond_temb, heads=heads)
+    ctrl_hidden, control_enc = he[:, :s_h], he[:, s_h:]
+
+    moe_out = _moe_with_weave_sd3(ctrl, cfg, ctrl_hidden, cond_tokens, control_enc,
+                                  control_temb, cond_temb, pooled, condition_pooled,
+                                  training=training)
+    x = moe_out.expert_hidden + moe_out.expert_condition
+    residuals = []
+    for i in range(_n_control(cfg)):
+        if cc.use_encoder_hidden_states:
+            control_enc, x = sd3_joint_block(index_params(ctrl["joint_blocks"], i), x,
+                                             control_enc, control_temb, heads=heads)
+        else:
+            x = sd3_single_block(index_params(ctrl["single_control_blocks"], i), x,
+                                 control_temb, heads=heads)
+        residuals.append(linear(index_params(ctrl["add_blocks"], i), x))
+
+    out = _base_pass_sd3(params, cfg, hidden, encoder, pooled, timestep, residuals,
+                         scale)
+    add_outputs: Dict[str, Any] = {"expert_counts": moe_out.expert_counts}
+    if return_control_residuals:
+        add_outputs["control_residuals"] = stack_residuals(
+            residuals if control_residuals_bits == 16 else
+            [quantize_residual(r, control_residuals_bits) for r in residuals])
+    return out, {"moe_loss": moe_out.aux_loss * cc.moe.aux_loss_weight}, add_outputs
+
+
+def _base_pass_sd3(params: dict, cfg: UniGenConfig, hidden, encoder, pooled,
+                   timestep, residuals, scale):
+    """The frozen base pass of ``unigen_base_forward``: residual
+    int(i / interval) times ``scale`` added after base block i, or appended
+    as condition keys and values of its attention under ``CrossAttn``."""
+    base, ctrl = params["base"], params["control"]
+    bb, cc = cfg.sd3, cfg.control
+    heads = bb.num_attention_heads
+    height, width = hidden.shape[2:]
+    interval = bb.num_layers / _n_control(cfg)
+    cross = cc.cn2base_method == "CrossAttn"
+    h, enc, temb = sd3_embed_inputs(base, bb, hidden, encoder, pooled, timestep)
+    for i, block in enumerate(sd3_block_list(base, bb)):
+        res = residuals[int(i / interval)] * scale
+        if cross and "cross_kv" in ctrl:
+            block = {**block, "attn": {**block["attn"], **ctrl["cross_kv"][i]}}
+        enc_out, h = sd3_joint_block(block, h, enc, temb, heads=heads,
+                                     condition_kv_states=res if cross else None)
+        enc = enc_out if enc_out is not None else enc
+        if not cross:
+            h = h + res
+    h = linear(base["proj_out"], adaln_continuous(base["norm_out"], h, temb))
+    return unpatchify(h, height // bb.patch_size, width // bb.patch_size,
+                      bb.patch_size, bb.out_channels)
 
 
 def conditioning_schedule(num_steps: int, conditioning_scale: float = 1.0,

@@ -4,7 +4,10 @@ a diffusers-layout checkpoint directory -> a pipeline on the card.
 FLUX: ``transformer/ vae/ text_encoder/ (CLIP-L) text_encoder_2/ (T5-XXL)
 tokenizer/ tokenizer_2/ scheduler/``. SD3.5: ``transformer/ vae/
 text_encoder/ (CLIP-L) text_encoder_2/ (CLIP-G) text_encoder_3/ (T5-XXL,
-optional) tokenizer*/ scheduler/``. Each subfolder's ``config.json`` gives
+optional) tokenizer*/ scheduler/``. SANA: ``transformer/ text_encoder/
+(Gemma-2) tokenizer/ scheduler/``, the DC-AE in the native format
+(``models/dcae.save_dcae_native``) under ``vae/`` or ``dcae_dir``, and
+CLIP-L from ``clip_dir``. Each subfolder's ``config.json`` gives
 its configuration; the weights are read by ``io/torch_bridge`` (the
 port's own safetensors reader). An optional UniGen adapter checkpoint
 gives the control branch; without one, it is the port's control init
@@ -15,15 +18,14 @@ Tokenizers load through ``transformers`` where it is installed and the
 subfolder holds one; a missing package or directory leaves them None, and
 the pipeline then serves embeddings passed by the caller. Every loader
 takes ``device`` (CUDA unless "cpu" is named) and ``dtype``.
-
-``load_sana_pipeline`` waits for its slice of the port (ROADMAP Queue 1
-item 7).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import sys
 from typing import Optional, Sequence
 
 import torch
@@ -32,14 +34,18 @@ from unigen_tpu_torch import config as cfg_lib
 from unigen_tpu_torch.io import serving_cache as serving_cache_lib
 from unigen_tpu_torch.io import torch_bridge as tb
 from unigen_tpu_torch.io import torch_bridge_sd3 as tb3
+from unigen_tpu_torch.models import dcae
 from unigen_tpu_torch.models import vae as vae_lib
 from unigen_tpu_torch.models.clip_text import CLIPTextConfig
+from unigen_tpu_torch.models.gemma_text import GemmaConfig
+from unigen_tpu_torch.models.sana import init_sana_unigen_control
 from unigen_tpu_torch.models.t5_text import T5Config
 from unigen_tpu_torch.models.unigen_flux import init_unigen_flux_control
 from unigen_tpu_torch.models.unigen_sd3 import init_unigen_sd3_control
 from unigen_tpu_torch.ops import quant
 from unigen_tpu_torch.pipelines import scheduling
 from unigen_tpu_torch.pipelines.flux import UniGenFluxPipeline
+from unigen_tpu_torch.pipelines.sana import UniGenSanaPipeline
 from unigen_tpu_torch.pipelines.sd3 import UniGenSD3Pipeline
 from unigen_tpu_torch.utils import resolve_device
 
@@ -54,9 +60,13 @@ def _subcfg(root: str, sub: str) -> dict:
 
 def _tokenizer(cls_name: str, path: str):
     """A transformers tokenizer from the local directory ``path``, or None
-    where there is no such directory, transformers is missing or the
-    directory holds no tokenizer (a broken one raises)."""
-    if not os.path.isdir(path):
+    where there is no such directory, it holds no tokenizer file (a CLIP
+    weights directory without one, as SANA's ``clip_dir`` may be), or
+    transformers is missing (a broken tokenizer raises)."""
+    names = ("tokenizer.json", "tokenizer_config.json", "vocab.json", "tokenizer.model",
+             "spiece.model")
+    if not os.path.isdir(path) or not any(os.path.exists(os.path.join(path, n))
+                                          for n in names):
         return None
     try:
         import transformers
@@ -128,7 +138,7 @@ def _quantize_text(params, quantize_text: Optional[str]):
 
 
 def _quantize_unigen_tree(base, control, quantize: Optional[str]):
-    """The sd3 serving policy for a loaded {base, control} pair: "w8a8" int8
+    """The sd3 / sana serving policy for a loaded {base, control} pair: "w8a8" int8
     everywhere eligible, "w4a8" an int4 base and an int8 adapter; other
     values keep the load dtype."""
     if quantize == "w8a8":
@@ -331,3 +341,123 @@ def load_sd3_pipeline(root: str, *, condition_types: Sequence[str] = ("depth",),
     return UniGenSD3Pipeline(cfg=cfg, params={"base": base, "control": control},
                              vae_cfg=vae_cfg, vae_params=vae_params, scheduler=scheduler,
                              text_encoders=text_encoders, dtype=dtype, device=dev)
+
+
+def sana_backbone_from_json(tcfg: dict) -> cfg_lib.SanaBackboneConfig:
+    """diffusers SanaTransformer2DModel config.json -> SanaBackboneConfig
+    (``pooled_projection_dim``, the MoE streams' pooled width, is UniGen's
+    own field)."""
+    return cfg_lib.SanaBackboneConfig(
+        in_channels=tcfg.get("in_channels", 32),
+        out_channels=tcfg.get("out_channels", 32),
+        num_layers=tcfg.get("num_layers", 20),
+        attention_head_dim=tcfg.get("attention_head_dim", 32),
+        num_attention_heads=tcfg.get("num_attention_heads", 70),
+        num_cross_attention_heads=tcfg.get("num_cross_attention_heads", 20),
+        cross_attention_head_dim=tcfg.get("cross_attention_head_dim", 112),
+        cross_attention_dim=tcfg.get("cross_attention_dim", 2240),
+        caption_channels=tcfg.get("caption_channels", 2304),
+        mlp_ratio=tcfg.get("mlp_ratio", 2.5),
+        patch_size=tcfg.get("patch_size", 1),
+        sample_size=tcfg.get("sample_size", 32),
+        pooled_projection_dim=tcfg.get("pooled_projection_dim", 768))
+
+
+def gemma_config_from_json(raw: dict) -> GemmaConfig:
+    """transformers Gemma2 config.json -> GemmaConfig (Gemma-2-2B's values
+    by default)."""
+    return GemmaConfig(
+        vocab_size=raw.get("vocab_size", 256000),
+        hidden_size=raw.get("hidden_size", 2304),
+        intermediate_size=raw.get("intermediate_size", 9216),
+        num_layers=raw.get("num_hidden_layers", 26),
+        num_heads=raw.get("num_attention_heads", 8),
+        num_kv_heads=raw.get("num_key_value_heads", 4),
+        head_dim=raw.get("head_dim", 256),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-6),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        attn_logit_softcapping=raw.get("attn_logit_softcapping", 50.0),
+        query_pre_attn_scalar=raw.get("query_pre_attn_scalar", 256.0),
+        sliding_window=raw.get("sliding_window", 4096))
+
+
+def load_sana_pipeline(root: str, *, condition_types: Sequence[str] = ("canny",),
+                       adapter_dir: Optional[str] = None, dtype=torch.float32,
+                       control_overrides: Optional[dict] = None,
+                       quantize: Optional[str] = None,
+                       quantize_text: Optional[str] = None,
+                       dcae_dir: Optional[str] = None,
+                       clip_dir: Optional[str] = None,
+                       device=None) -> UniGenSanaPipeline:
+    """A UniGenSanaPipeline from a SANA directory. The control branch is the
+    reference SANAUniGen adapter at ``adapter_dir`` or the warm-started init;
+    ``quantize`` "w8a8" / "w4a8" quantizes the transformer tree
+    (``_quantize_unigen_tree``: w4a8 is an int4 base and an int8 adapter)
+    and ``quantize_text`` Gemma and CLIP. The latent codec is the native
+    DC-AE at ``dcae_dir`` or ``{root}/vae`` (fp32); where neither holds a
+    native save, a random DC-AE (``DCAEConfig(latent_channels=in_channels)``
+    drawn from a generator seeded 2) is used and a warning printed to
+    stderr: its pixels mean nothing. Gemma loads where ``text_encoder/``
+    exists, CLIP-L from ``clip_dir`` (its config.json beside the weights);
+    without them the pipeline serves embeddings passed by the caller."""
+    dev = resolve_device(device)
+    sana = sana_backbone_from_json(_subcfg(root, "transformer"))
+    cfg = cfg_lib.UniGenConfig(
+        family="sana", sana=sana,
+        control=cfg_lib.ControlConfig(**(control_overrides or {})),
+        condition_types=tuple(condition_types))
+
+    base = tb3.load_sana_transformer(
+        tb.read_checkpoint_dir(os.path.join(root, "transformer")), sana, dtype=dtype,
+        device=dev)
+    n_cn = cfg.control.num_layers or sana.num_layers
+    if adapter_dir:
+        control = tb3.load_sana_unigen_adapter(
+            tb.read_checkpoint_dir(adapter_dir), sana, n_cn,
+            cfg.control.moe.num_experts(cfg.condition_nums), dtype=dtype, device=dev)
+    else:
+        control = init_sana_unigen_control(
+            cfg, gen=torch.Generator(device=dev).manual_seed(0), device=dev,
+            dtype=dtype, base_params=base)
+    base, control = _quantize_unigen_tree(base, control, quantize)
+
+    ae_root = dcae_dir or os.path.join(root, "vae")
+    if dcae.has_dcae_native(ae_root):
+        ae_params, ae_cfg = dcae.load_dcae_native(ae_root, device=dev)
+    else:
+        ae_cfg = dcae.DCAEConfig(latent_channels=sana.in_channels)
+        ae_params = dcae.init_dcae_params(
+            ae_cfg, gen=torch.Generator(device=dev).manual_seed(2), device=dev)
+        print(f"# load_sana_pipeline: no native DC-AE at {ae_root}; using a "
+              "RANDOM-INIT codec (decoded pixels are meaningless; write released "
+              "dc-ae weights with models/dcae.save_dcae_native)", file=sys.stderr)
+
+    gemma_cfg = gemma_params = tokenizer = None
+    enc_dir = os.path.join(root, "text_encoder")
+    if os.path.isdir(enc_dir):
+        gemma_cfg = gemma_config_from_json(_subcfg(root, "text_encoder"))
+        gemma_params = _quantize_text(
+            tb.load_gemma_text(tb.read_checkpoint_dir(enc_dir), gemma_cfg.num_layers,
+                               dtype=dtype, device=dev), quantize_text)
+        tokenizer = _tokenizer("AutoTokenizer", os.path.join(root, "tokenizer"))
+
+    clip_cfg = clip_params = tokenizer_clip = None
+    if clip_dir:
+        raw = {}
+        if os.path.exists(os.path.join(clip_dir, "config.json")):
+            with open(os.path.join(clip_dir, "config.json")) as f:
+                raw = json.load(f)
+        clip_cfg = _clip_cfg_from_json(raw)
+        clip_params = _quantize_text(
+            tb.load_clip_text(tb.read_checkpoint_dir(clip_dir), clip_cfg.num_layers,
+                              dtype=torch.float32, device=dev), quantize_text)
+        tokenizer_clip = _tokenizer("CLIPTokenizer", clip_dir)
+
+    scheduler = scheduling.FlowMatchConfig(shift=_subcfg(root, "scheduler").get("shift", 3.0))
+    return UniGenSanaPipeline(
+        cfg=cfg, params={"base": base, "control": control},
+        ae_encode=functools.partial(dcae.dcae_encode, ae_params, ae_cfg),
+        ae_decode=functools.partial(dcae.dcae_decode, ae_params, ae_cfg),
+        ae_downscale=ae_cfg.downscale, gemma_cfg=gemma_cfg, gemma_params=gemma_params,
+        clip_cfg=clip_cfg, clip_params=clip_params, tokenizer=tokenizer,
+        tokenizer_clip=tokenizer_clip, scheduler=scheduler, dtype=dtype, device=dev)

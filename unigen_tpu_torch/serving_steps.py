@@ -1,5 +1,5 @@
 """Step-level continuous batching for diffusion serving (port of
-``unigen_tpu/serving_steps.py``, the flux and sd3 families).
+``unigen_tpu/serving_steps.py``).
 
 ``MicroBatchServer`` (serving.py) batches whole requests: a request that
 arrives mid-batch waits for the previous batch's whole denoise.
@@ -13,14 +13,16 @@ Requirements: ``MoEConfig.batch_mode="per_sample"``, so the router keeps
 batch rows independent (under global routing a pad row could take expert
 capacity from a real one).
 
-Families: **flux** (token-packed latents, VAE codec) and **sd3** (each slot
-owns one latent and a stacked (neg, pos) pair of text and pooled rows; the
-family forward duplicates the gathered latents into a 2m batch and applies
-the guidance combine ``neg + g * (pos - neg)`` inside the call, so the
-per-slot caches hold the guided prediction as the one-shot pipeline's model
-cache does). The sana family waits for the port of ``models/sana.py`` and
-the DC-AE (ROADMAP Queue 1 item 7); ``mesh=`` for the parallel slice (item
-8). Both raise ``NotImplementedError``.
+Families: **flux** (token-packed latents, VAE codec), **sana** (NCHW
+latents through the caller's latent codec, e.g. the DC-AE of
+``load_sana_pipeline``, with a per-slot Gemma padding mask; no guidance:
+SANA denoises without CFG, so a ``guidance_scale`` on a request raises)
+and **sd3** (each slot owns one latent and a stacked (neg, pos) pair of
+text and pooled rows; the family forward duplicates the gathered latents
+into a 2m batch and applies the guidance combine ``neg + g * (pos - neg)``
+inside the call, so the per-slot caches hold the guided prediction as the
+one-shot pipeline's model cache does). ``mesh=`` waits for the parallel
+slice (ROADMAP Queue 1 item 8) and raises ``NotImplementedError``.
 
 The per-slot caches compose with continuous batching as in the JAX server:
 ``model_cache_interval=k`` refreshes a slot's cached prediction every k-th
@@ -69,6 +71,7 @@ import torch
 
 from unigen_tpu_torch.config import UniGenConfig
 from unigen_tpu_torch.models import vae as vae_lib
+from unigen_tpu_torch.models.sana import sana_unigen_forward
 from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
 from unigen_tpu_torch.models.unigen_sd3 import unigen_sd3_forward
 from unigen_tpu_torch.ops.packing import (pack_latents, prepare_latent_image_ids,
@@ -108,6 +111,14 @@ def _sd3_decode(vae_params, vae_cfg, lat):
     return vae_lib.vae_decode(vae_params, vae_cfg, lat.to(torch.float32)).clamp(-1, 1)
 
 
+def _ae_encode(ae_encode, dtype, px):
+    return ae_encode(px).to(dtype)
+
+
+def _ae_decode(ae_decode, lat):
+    return ae_decode(lat.to(torch.float32)).clamp(-1, 1)
+
+
 class AdmissionRejected(RuntimeError):
     """Raised by :meth:`StepServer.submit` when admission control sheds the
     request (queue full under ``max_waiters``, or ``wait=False`` with no
@@ -140,6 +151,7 @@ class StepServer:
 
     def __init__(self, cfg: UniGenConfig, params, vae_cfg=None,
                  vae_params=None, *,
+                 ae_encode=None, ae_decode=None, ae_downscale: int = 32,
                  batch_size: int = 8, num_inference_steps: int = 4,
                  height: int = 512, width: int = 512,
                  guidance_scale: float = 3.5,
@@ -211,10 +223,10 @@ class StepServer:
         self.num_steps = num_inference_steps
         self.height, self.width = height, width
         self.dtype = dtype
-        # timestep units differ per family: the flux forward takes 0..1
-        # (timesteps / 1000, divided as the pipeline divides: the JAX server
-        # multiplies by 1e-3, one float32 ulp off at some steps), sd3 the
-        # raw scheduler timesteps
+        # timestep units differ per family: the flux and sana forwards take
+        # 0..1 (timesteps / 1000, divided as the pipelines divide: the JAX
+        # server multiplies by 1e-3, one float32 ulp off at some steps), sd3
+        # the raw scheduler timesteps
         self._t_div = np.float32(1.0 if self.family == "sd3" else 1000.0)
         if self.family == "flux":
             bb = cfg.flux
@@ -245,9 +257,23 @@ class StepServer:
             self._decode = functools.partial(_sd3_decode, self.vae_params,
                                              vae_cfg)
         else:
-            raise NotImplementedError(
-                "the sana StepServer family waits for the port of models/sana.py "
-                "and the DC-AE (ROADMAP Queue 1 item 7)")
+            bb = cfg.sana
+            _require(ae_encode is not None and ae_decode is not None,
+                     "sana StepServer needs the DC-AE codec (ae_encode/ae_decode"
+                     " callables, e.g. from load_sana_pipeline)")
+            lh, lw = height // ae_downscale, width // ae_downscale
+            self.s_img = (lh // bb.patch_size) * (lw // bb.patch_size)
+            # the sana pipeline passes the raw latent area (before
+            # patchify) as image_seq_len; so does the server
+            seq_for_sigmas = lh * lw
+            lat_shape = (B, bb.in_channels, lh, lw)
+            self._img_ids = None
+            sch = scheduler or scheduling.FlowMatchConfig(shift=3.0)
+            # the codec callables carry their own trees (load_sana_pipeline
+            # binds them); JAX threads ``ae_params`` through its jit, which
+            # the eager port has no use for
+            self._encode = functools.partial(_ae_encode, ae_encode, dtype)
+            self._decode = functools.partial(_ae_decode, ae_decode)
         if mesh is not None:
             raise NotImplementedError(
                 "StepServer(mesh=...) waits for the port of unigen_tpu/parallel "
@@ -268,6 +294,7 @@ class StepServer:
         self._lat = zeros(lat_shape)
         self._cond = zeros(lat_shape)
         self._embeds = None                     # [B, T, D] set on first admit
+        self._mask = None                       # [B, T] int32 (sana)
         # sd3 slots stack the (neg, pos) CFG pair on axis 1 of the stream rows
         self._pooled = zeros((B, 2, bb.pooled_projection_dim)
                              if self.family == "sd3"
@@ -392,15 +419,19 @@ class StepServer:
         what the card's first calls pay for: the kernels' loading and
         tensor maps, cuDNN's algorithm choice in the VAE, cuBLAS handles
         and the caching allocator's pools. ``t_len`` is the serving text
-        length (flux 512, sd3 77+256). Slot state is rewritten on
+        length (flux 512, sd3 77+256, sana 300). Slot state is rewritten on
         admission, so a warmed server serves like a fresh one. Returns the
         number of warm-up requests run."""
-        bb = {"flux": self.cfg.flux, "sd3": self.cfg.sd3}[self.family]
+        bb = self.cfg.backbone
+        emb_dim = (bb.caption_channels if self.family == "sana"
+                   else bb.joint_attention_dim)
         req = dict(
-            prompt_embeds=np.zeros((1, t_len, bb.joint_attention_dim), np.float32),
+            prompt_embeds=np.zeros((1, t_len, emb_dim), np.float32),
             pooled=np.zeros((1, bb.pooled_projection_dim), np.float32),
             cond_pooled=np.zeros((1, bb.pooled_projection_dim), np.float32),
             control_pixels=np.zeros((1, 3, self.height, self.width), np.float32))
+        if self.family == "sana":
+            req["prompt_mask"] = np.ones((1, t_len), np.int32)
         futs = [self.submit(**req, wait=True)
                 for _ in range(max(1, rounds) * self.B)]
         for f in futs:
@@ -448,15 +479,20 @@ class StepServer:
         return tree_map(lambda r: r.transpose(1, 2).reshape(
             (r.shape[0], r.shape[1] * 2) + tuple(r.shape[3:])), rows)
 
-    def _fwd(self, lat, cond, embeds, pooled, cpool, t_now, scale, g, **kw):
+    def _fwd(self, lat, cond, embeds, mask, pooled, cpool, t_now, scale, g, **kw):
         """The family forward over gathered rows, shared by the exact step,
         the model-cache refresh and the hybrid full/base forwards -> the
         forward's (pred, losses, outs). ``t_now``, ``scale`` and ``g`` are
         float32 [m] vectors on the device: flux feeds ``g`` to the guidance
         embedder; sd3 runs the duplicated 2m CFG batch and returns the
         guided prediction ``neg + g * (pos - neg)``, so everything
-        downstream (Euler, caches) sees one prediction per slot."""
+        downstream (Euler, caches) sees one prediction per slot; sana takes
+        the per-row padding ``mask`` [m, T] and ignores ``g``."""
         cfg, dtype = self.cfg, self.dtype
+        if self.family == "sana":
+            return sana_unigen_forward(
+                self.params, cfg, lat, cond, embeds, pooled, cpool, t_now.to(dtype),
+                mask, conditioning_scale=scale[:, None, None].to(dtype), **kw)
         if self.family == "flux":
             if self._txt_ids is None or self._txt_ids.shape[0] != embeds.shape[1]:
                 self._txt_ids = torch.zeros(embeds.shape[1], 3, device=self.device)
@@ -489,12 +525,12 @@ class StepServer:
     def _state(self) -> dict:
         """The state tensors a tick reads (snapshot under the lock)."""
         return dict(lat=self._lat, cond=self._cond, embeds=self._embeds,
-                    pooled=self._pooled, cpool=self._cond_pooled)
+                    mask=self._mask, pooled=self._pooled, cpool=self._cond_pooled)
 
     def _exact_step(self, st, lat, t_now, s_now, s_next, scale, g):
         """One exact tick over all B rows: forward, then Euler."""
-        pred, _, _ = self._fwd(lat, st["cond"], st["embeds"], st["pooled"],
-                               st["cpool"], t_now, scale, g)
+        pred, _, _ = self._fwd(lat, st["cond"], st["embeds"], st.get("mask"),
+                               st["pooled"], st["cpool"], t_now, scale, g)
         return scheduling.euler_step(lat, pred, self._bsig(s_now, lat),
                                      self._bsig(s_next, lat))
 
@@ -509,9 +545,11 @@ class StepServer:
 
     def _gathered(self, st, idx, t_r, sc_r, g_r, **kw):
         """The family forward over the slots ``idx`` (gathered rows)."""
+        mask = st.get("mask")          # the sana family's alone
         return self._fwd(st["lat"].index_select(0, idx),
                          st["cond"].index_select(0, idx),
                          st["embeds"].index_select(0, idx),
+                         None if mask is None else mask.index_select(0, idx),
                          st["pooled"].index_select(0, idx),
                          st["cpool"].index_select(0, idx), t_r, sc_r, g_r, **kw)
 
@@ -831,7 +869,7 @@ class StepServer:
 
     @torch.no_grad()
     def submit(self, *, prompt_embeds, pooled, cond_pooled, control_pixels,
-               neg_embeds=None, neg_pooled=None,
+               prompt_mask=None, neg_embeds=None, neg_pooled=None,
                conditioning_scale: float = 1.0,
                guidance_scale: Optional[float] = None,
                num_inference_steps: Optional[int] = None,
@@ -843,8 +881,9 @@ class StepServer:
         """Admit one request (leading dim 1 on every array; numpy arrays or
         tensors). Returns a Future resolving to a uint8 image [1, H, W, 3]
         (a CPU tensor). wait=True blocks until a slot frees instead of
-        raising. ``neg_embeds``/``neg_pooled`` are the sd3 negative stream
-        (zeros by default, the one-shot pipeline's default). Without
+        raising. ``prompt_mask`` [1, T] is the sana padding mask (all ones
+        by default). ``neg_embeds``/``neg_pooled`` are the sd3 negative
+        stream (zeros by default, the one-shot pipeline's default). Without
         ``latents`` the noise is drawn from a ``torch.Generator`` on the
         server's device seeded with ``seed`` (the port pipeline's draw; it
         cannot equal the JAX server's PRNG).
@@ -852,7 +891,8 @@ class StepServer:
         Per-request knobs (each defaults to the server's value; one server
         mixes them freely):
           * ``guidance_scale``: flux guidance embedding / sd3 CFG combine
-            coefficient (a per-row vector).
+            coefficient (a per-row vector); sana has no guidance, and a
+            value raises.
           * ``num_inference_steps``: the request's own schedule; the slot
             retires at its own step count.
           * ``control_guidance_start``/``end``: the conditioning-scale
@@ -869,6 +909,9 @@ class StepServer:
             priority strictly beats every queued waiter's. ``timeout``
             with ``wait=False`` raises ``ValueError``."""
         fut: Future = Future()
+        if self.family == "sana" and guidance_scale is not None:
+            raise ValueError("sana denoises without guidance; "
+                             "guidance_scale is not a sana request knob")
         if timeout is not None and not wait:
             raise ValueError("timeout= only bounds the wait=True admission "
                              "window; a wait=False submit returns (or "
@@ -905,6 +948,10 @@ class StepServer:
         else:
             latents = torch.as_tensor(latents).to(dev, dt)
         cond_pooled = torch.as_tensor(cond_pooled).to(dev, dt)
+        if self.family == "sana":
+            prompt_mask = (torch.ones((1, embeds.shape[1]), dtype=torch.int32, device=dev)
+                           if prompt_mask is None else
+                           torch.as_tensor(prompt_mask).to(dev, torch.int32))
         with self._work:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -966,6 +1013,8 @@ class StepServer:
             # they could interleave with a tick that is being dispatched
             payload = dict(lat=latents, cond=cond_lat, embeds=embeds,
                            pooled=pooled, cond_pooled=cond_pooled)
+            if self.family == "sana":
+                payload["mask"] = prompt_mask
             self._slots[idx] = _Slot(
                 future=fut, step=0, payload=payload, num_steps=n_steps,
                 guidance=g, sched=sched, sigmas=sig, timesteps=tst,
@@ -982,6 +1031,8 @@ class StepServer:
         B, dev = self.B, self.device
         self._embeds = torch.zeros((B,) + tuple(embeds.shape[1:]), dtype=self.dtype,
                                    device=dev)
+        if self.family == "sana":
+            self._mask = torch.zeros((B, embeds.shape[1]), dtype=torch.int32, device=dev)
         t_len = embeds.shape[2] if self.family == "sd3" else embeds.shape[1]
         self._t_len = t_len
         if not (self.cache_c > 1 or self.thr_c > 0):
@@ -995,10 +1046,13 @@ class StepServer:
             # (doubles on the image stream, singles on [txt | img])
             self._res = (buf((bb.num_layers, B, self.s_img, d_inner)),
                          buf((bb.num_single_layers, B, t_len + self.s_img, d_inner)))
-        else:
+        elif self.family == "sd3":
             # raw control-block outputs for both CFG halves (axis 2)
             bb = self.cfg.sd3
             self._res = buf((bb.num_layers, B, 2, self.s_img, bb.inner_dim))
+        else:
+            bb = self.cfg.sana
+            self._res = buf((bb.num_layers, B, self.s_img, bb.inner_dim))
 
     def _sweep_cancelled(self):
         """Free slots whose future was cancelled (lock held). ``Future.cancel()``
@@ -1048,6 +1102,8 @@ class StepServer:
         self._lat = put(self._lat, "lat")
         self._cond = put(self._cond, "cond")
         self._embeds = put(self._embeds, "embeds")
+        if self._mask is not None:
+            self._mask = put(self._mask, "mask")
         self._pooled = put(self._pooled, "pooled")
         self._cond_pooled = put(self._cond_pooled, "cond_pooled")
         for i, _ in rows:
