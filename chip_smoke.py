@@ -205,7 +205,35 @@ Phases, in order; any failure exits non-zero:
      against the undonated quantization of a quantize=None load) and two
      requests through the pipeline's __call__; the directory is removed
      whatever happens.
- 10. one JSON line listing the kernels; the last line is the JSON result.
+ 10 entry_points (after 4f, before the directories go): the user entry
+     points on 8c's SD3.5-medium directory and 4e's FLUX directory, each
+     pipeline loaded once and given seeded stub tokenizers. 10a
+     entry_infer: cli.infer --basemodel UniGenSD3 (W4A8, W4A8 text, bf16,
+     512^2, 28 steps, CFG 7) loaded through cli.infer.load_pipeline, a
+     single-prompt request with a control PNG, then the held-out split of
+     a Subjects-200K-layout dataset in batches of 2 (load s, img/s,
+     launches equal to expected_sd3_pipeline_launches plus the prompt
+     encodes); entry_infer_check (every image bit for bit equal to the
+     pipeline's own call with the same arguments and seed) and
+     entry_infer_path_check (one CFG forward's kernel calls against their
+     plain versions). 10c entry_serve, on the same pipeline at the serve
+     CLI's 4 steps: cli.serve request-batched (batch 2, four JSON-line
+     requests) and --step-server (4 slots, four requests, the last
+     cancelled in flight): img/s, latency p50/p95, the server's stats, the
+     launches; entry_serve_check (the batched PNGs bit for bit against
+     generate of their batches; the step server's against generate at b =
+     slots with the server's noise, per-request VAE ends, within
+     ENTRY_SERVE_CODES). 10b entry_infer_flux: one cli.infer request on
+     the FLUX directory at LOAD_FLUX_DEPTH (kernel 1 on the entry path),
+     launches against the formula. 10d entry_eval: cli.eval over 10a's
+     batch output, --fid --dists on a random torchvision-layout VGG16 file
+     (14.7 M parameters) and --fid on a random Depth-Anything-small
+     directory in transformers' layout, each on the card (TF32 off) and
+     with --device cpu: every metric within ENTRY_EVAL_REL (entry_eval_check).
+     10e depth_condition: make_depth_fn of that tree on DEPTH_IMAGES 512^2
+     images (504^2 inside): ms per image on the card, uint8 within one
+     code of the CPU's.
+ 11. one JSON line listing the kernels; the last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
 the 1024^2 lengths, kernel 1 and its backward at the consis module's 3072
@@ -415,6 +443,11 @@ LORA_RANK = 16
 TRAIN_LORA_STEPS, TRAIN_LORA_SAVE = 4, 2
 CLI_STEPS, CLI_SAVE, CLI_RESUME_TO = 4, 2, 6
 CLI_ITEMS = 8             # Subjects-200K items written for 4f
+ENTRY_SAMPLES = 4         # 10a: the held-out split served in batches of BATCH
+SERVE_REQUESTS = 4        # 10c: request-batched requests
+ENTRY_SERVE_CODES = 1     # 10c: the step server's images against generate
+ENTRY_EVAL_REL = 1e-4     # 10d: the card's metrics against the CPU's
+DEPTH_IMAGES = 4          # 10e
 ROUTING_STEPS = 3         # 6c: timed micro-steps of each variant (the median read)
 CHECKPOINTS = Path(__file__).resolve().parent / "build" / "checkpoints"
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
@@ -4486,6 +4519,28 @@ def sd3_load_check(torch, root, pipe, dev, min_dim=512):
     return compared, differ
 
 
+def kernel_path_check(torch, phase, calls):
+    """Every kernel call of each ``(what, call, expected launches)`` against
+    its plain version on the call's own inputs, with the W4A8 shapes run:
+    one line, and a stop if a call disagrees or the calls differ from the
+    expected launches."""
+    path = {}
+    with torch.no_grad():
+        for what, call, want in calls:
+            checks = {}
+            with shadowed_kernels(torch, checks):
+                call()
+            summary = path_check_summary(checks)
+            path[what] = dict(summary, expected_calls=nonzero(want),
+                              w4a8_shapes=shape_counts(checks.get("w4a8_matmul", [])))
+            got = {n: c["calls"] for n, c in summary.items()}
+            if any(c["disagree"] for c in summary.values()) or got != {
+                    n: v for n, v in nonzero(want).items() if n != "w4a8_general"}:
+                raise SystemExit(f"{phase} {what}: {summary} (expected {want})")
+    emit(dict(phase=phase, **path))
+    return path
+
+
 def phase_sd3_pipeline(torch, dev, seed, root):
     """8c. A full-size random SD3.5-medium checkpoint directory written to
     ``root`` (the diffusers layout, with a UniGen adapter), loaded by
@@ -4644,27 +4699,12 @@ def phase_sd3_pipeline(torch, dev, seed, root):
     fwd = sd3_pipeline_forward(torch, pipe, e, p, cond, control_lat, seed)
     ids_t5 = tokenize(te["t5"][2], ["a photo of a red cube"], 256)
     ids_g = tokenize(te["clip_g"][2], ["a photo of a red cube"], 77)
-    checks, path = {}, {}
-    with torch.no_grad():
-        for what, call, want in (
-                ("cfg_forward", fwd, sd3_forward_launches_quantized(pipe.params, cfg, 2)),
-                ("t5_encode", lambda: t5_encode(te["t5"][0], te["t5"][1], ids_t5),
-                 text_launches(te["t5"][0])),
-                ("clip_g_encode", lambda: clip_encode(te["clip_g"][0], te["clip_g"][1],
-                                                      ids_g)[2],
-                 text_launches(te["clip_g"][0]))):
-            checks = {}
-            with shadowed_kernels(torch, checks):
-                call()
-            summary = path_check_summary(checks)
-            path[what] = dict(summary, expected_calls=nonzero(want),
-                              w4a8_shapes=shape_counts(checks.get("w4a8_matmul", [])))
-            calls = {n: c["calls"] for n, c in summary.items()}
-            if any(c["disagree"] for c in summary.values()) or calls != {
-                    n: v for n, v in nonzero(want).items() if n != "w4a8_general"}:
-                raise SystemExit(f"sd3_pipeline_path_check {what}: {summary} "
-                                 f"(expected {want})")
-    emit(dict(phase="sd3_pipeline_path_check", **path))
+    kernel_path_check(torch, "sd3_pipeline_path_check", (
+        ("cfg_forward", fwd, sd3_forward_launches_quantized(pipe.params, cfg, 2)),
+        ("t5_encode", lambda: t5_encode(te["t5"][0], te["t5"][1], ids_t5),
+         text_launches(te["t5"][0])),
+        ("clip_g_encode", lambda: clip_encode(te["clip_g"][0], te["clip_g"][1], ids_g)[2],
+         text_launches(te["clip_g"][0]))))
 
     # profile: device time by group of a CFG forward at the served batch (two
     # requests) and of the cfg_cache replay step on its positive half
@@ -4880,10 +4920,12 @@ def phase_load_flux(torch, dev, seed, root, sd3_root):
     return line
 
 
-def write_subjects200k(root, n, res, seed):
+def write_subjects200k(root, n, res, seed, test=0):
     """A Subjects-200K-layout dataset of ``n`` items (score_5/itemNNN_target_0
     .jpg, its pre-rendered depth_large condition and description sidecar)
-    of seeded random res x res images. -> bytes written."""
+    of seeded random res x res images, the first ``test`` of them listed in
+    the held-out split (test_infos/depth_subject_pose.txt). -> bytes
+    written."""
     import numpy as np
     from PIL import Image
     rng = np.random.default_rng(seed)
@@ -4895,6 +4937,10 @@ def write_subjects200k(root, n, res, seed):
                 f"{stem}_{kind}_0.jpg")
         Path(f"{stem}_target_0.json").write_text(
             json.dumps({"description": f"item {i}: a photo of a red cube"}))
+    if test:
+        (root / "test_infos").mkdir(exist_ok=True)
+        (root / "test_infos" / "depth_subject_pose.txt").write_text(
+            "".join(f"item{i:03d}_target_0.jpg\n" for i in range(test)))
     return sum(f.stat().st_size for f in (root / "score_5").iterdir())
 
 
@@ -5017,6 +5063,544 @@ def phase_train_cli(torch, dev, seed, root):
     del served
     torch.cuda.empty_cache()
     return line
+
+
+# ------------------------------------------------------------ the entry points
+
+def vgg16_features_shapes():
+    """torchvision ``vgg16().features``' state-dict shapes (the pools and
+    relus take index slots)."""
+    from unigen_tpu_torch.models.vgg import VGG16_CFG
+    shapes, idx, c_in = {}, 0, 3
+    for c in VGG16_CFG:
+        if c == "M":
+            idx += 1
+            continue
+        shapes[f"features.{idx}.weight"] = (c, c_in, 3, 3)
+        shapes[f"features.{idx}.bias"] = (c,)
+        c_in, idx = c, idx + 2
+    return shapes
+
+
+def write_vgg16_features(torch, path, seed, device):
+    """A random torchvision-layout VGG16 ``features`` state dict (He-normal
+    weights, small biases) drawn on ``device``, ``torch.save``d to ``path``.
+    -> (parameters, bytes)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for name, shape in vgg16_features_shapes().items():
+        t = torch.randn(shape, generator=gen, device=device)
+        scale = math.sqrt(2.0 / math.prod(shape[1:])) if len(shape) > 1 else 0.01
+        sd[name] = (t * scale).cpu()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path)
+    return sum(t.numel() for t in sd.values()), path.stat().st_size
+
+
+def depth_anything_shapes(cfg, grid):
+    """transformers DepthAnythingForDepthEstimation's state-dict shapes for
+    ``cfg`` (a models/depth.DepthAnythingConfig) with a ``grid`` x ``grid``
+    native position table."""
+    d, f = cfg.hidden_size, cfg.fusion_hidden_size
+    e = "backbone.embeddings"
+    shapes = {f"{e}.cls_token": (1, 1, d), f"{e}.mask_token": (1, d),
+              f"{e}.position_embeddings": (1, 1 + grid * grid, d),
+              f"{e}.patch_embeddings.projection.weight": (d, 3, cfg.patch_size,
+                                                          cfg.patch_size),
+              f"{e}.patch_embeddings.projection.bias": (d,)}
+    for i in range(cfg.num_layers):
+        p = f"backbone.encoder.layer.{i}"
+        for n in ("norm1", "norm2"):
+            shapes.update({f"{p}.{n}.weight": (d,), f"{p}.{n}.bias": (d,)})
+        for n in ("attention.attention.query", "attention.attention.key",
+                  "attention.attention.value", "attention.output.dense"):
+            shapes.update({f"{p}.{n}.weight": (d, d), f"{p}.{n}.bias": (d,)})
+        shapes.update({f"{p}.layer_scale1.lambda1": (d,),
+                       f"{p}.mlp.fc1.weight": (cfg.mlp_ratio * d, d),
+                       f"{p}.mlp.fc1.bias": (cfg.mlp_ratio * d,),
+                       f"{p}.mlp.fc2.weight": (d, cfg.mlp_ratio * d), f"{p}.mlp.fc2.bias": (d,),
+                       f"{p}.layer_scale2.lambda1": (d,)})
+    shapes.update({"backbone.layernorm.weight": (d,), "backbone.layernorm.bias": (d,)})
+    for i, (c, factor) in enumerate(zip(cfg.neck_hidden_sizes, cfg.reassemble_factors)):
+        p = f"neck.reassemble_stage.layers.{i}"
+        shapes.update({f"{p}.projection.weight": (c, d, 1, 1), f"{p}.projection.bias": (c,)})
+        if factor > 1:
+            shapes.update({f"{p}.resize.weight": (c, c, int(factor), int(factor)),
+                           f"{p}.resize.bias": (c,)})
+        elif factor < 1:
+            shapes.update({f"{p}.resize.weight": (c, c, 3, 3), f"{p}.resize.bias": (c,)})
+    for i, c in enumerate(cfg.neck_hidden_sizes):
+        shapes[f"neck.convs.{i}.weight"] = (f, c, 3, 3)
+    for i in range(len(cfg.neck_hidden_sizes)):
+        p = f"neck.fusion_stage.layers.{i}"
+        shapes.update({f"{p}.projection.weight": (f, f, 1, 1), f"{p}.projection.bias": (f,)})
+        for r in ("residual_layer1", "residual_layer2"):
+            for cv in ("convolution1", "convolution2"):
+                shapes.update({f"{p}.{r}.{cv}.weight": (f, f, 3, 3),
+                               f"{p}.{r}.{cv}.bias": (f,)})
+    h = cfg.head_hidden_size
+    shapes.update({"head.conv1.weight": (f // 2, f, 3, 3), "head.conv1.bias": (f // 2,),
+                   "head.conv2.weight": (h, f // 2, 3, 3), "head.conv2.bias": (h,),
+                   "head.conv3.weight": (1, h, 1, 1), "head.conv3.bias": (1,)})
+    return shapes
+
+
+def depth_anything_value(torch, name, shape, gen, device):
+    """A Depth-Anything tensor drawn so that the depth map is O(1): weights
+    N(0, 1 / fan-in), norm weights and layer scales 1 + N(0, 0.1), biases
+    N(0, 0.02), the class token and position table N(0, 1), the mask token
+    0, the head's last bias 0.5."""
+    if name.endswith("mask_token"):
+        return torch.zeros(shape, device=device)
+    t = torch.randn(shape, generator=gen, device=device)
+    if name.endswith(("cls_token", "position_embeddings")):
+        return t
+    if name == "head.conv3.bias":
+        return torch.full(shape, 0.5, device=device)
+    if len(shape) > 1:
+        return t / math.sqrt(math.prod(shape[1:]))
+    if name.endswith("lambda1") or (name.endswith(".weight") and "norm" in name):
+        return 1.0 + 0.1 * t
+    return 0.02 * t
+
+
+def depth_anything_config_json(cfg, grid):
+    """transformers' config.json of a Depth-Anything directory of ``cfg``."""
+    return {"architectures": ["DepthAnythingForDepthEstimation"],
+            "model_type": "depth_anything",
+            "backbone_config": {"model_type": "dinov2", "hidden_size": cfg.hidden_size,
+                                "num_hidden_layers": cfg.num_layers,
+                                "num_attention_heads": cfg.num_heads,
+                                "mlp_ratio": cfg.mlp_ratio, "patch_size": cfg.patch_size,
+                                "image_size": grid * cfg.patch_size,
+                                "layerscale_value": 1.0,
+                                "out_indices": list(cfg.out_indices),
+                                "apply_layernorm": True, "reshape_hidden_states": False},
+            "reassemble_factors": list(cfg.reassemble_factors),
+            "neck_hidden_sizes": list(cfg.neck_hidden_sizes),
+            "fusion_hidden_size": cfg.fusion_hidden_size,
+            "head_hidden_size": cfg.head_hidden_size, "patch_size": cfg.patch_size,
+            "depth_estimation_type": "relative", "max_depth": cfg.max_depth}
+
+
+def write_depth_anything(torch, root, cfg, seed, device, grid=37):
+    """A random Depth-Anything directory in transformers' layout
+    (config.json + model.safetensors, fp32) of ``cfg``'s sizes, drawn on
+    ``device`` (depth_anything_value). -> (parameters, bytes)."""
+    shapes = depth_anything_shapes(cfg, grid)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fixed = {n: depth_anything_value(torch, n, s, gen, device) for n, s in shapes.items()}
+    written = write_component(torch, root, shapes, torch.float32, gen, device,
+                              depth_anything_config_json(cfg, grid), fixed=fixed)
+    return sum(math.prod(s) for s in shapes.values()), written
+
+
+def write_control_png(path, res, seed):
+    """A seeded random res x res RGB control image."""
+    import numpy as np
+    from PIL import Image
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    Image.fromarray(rng.integers(0, 256, (res, res, 3), dtype=np.uint8)).save(path)
+    return path
+
+
+def read_png(torch, path):
+    import numpy as np
+    from PIL import Image
+    return torch.from_numpy(np.asarray(Image.open(path).convert("RGB")).copy())
+
+
+def code_diff(torch, a, b):
+    """The largest uint8 difference of two images."""
+    return int((a.int() - b.int()).abs().max())
+
+
+def entry_infer_check(torch, pipe, single_argv, batch_argv):
+    """``cli.infer``'s images against the SD3 pipeline's own call on the same
+    loaded pipeline with the same arguments and seed: the single-prompt
+    res.png (its control read and resized as the reference's infer does)
+    and the first batch of the test split (the dataset's samples, seed
+    --seed + 0). The CLI adds only I/O, so each must equal bit for bit.
+    -> (images compared, their largest uint8 difference)."""
+    import numpy as np
+    from PIL import Image
+
+    from unigen_tpu_torch.cli import infer as cli
+    from unigen_tpu_torch.data import conditions as C
+    from unigen_tpu_torch.data.datasets import Subjects200K
+    a = cli.parse_args(single_argv)
+    if pipe.cfg.family != "sd3":
+        raise SystemExit("entry_infer_check holds the SD3 pipeline")
+    kw = dict(condition_prompt=a.condition_types[0], height=a.resolution, width=a.resolution,
+              num_inference_steps=a.num_inference_steps, guidance_scale=a.guidance_scale,
+              conditioning_scale=a.conditioning_scale)
+    img = np.asarray(Image.open(a.control_image[0]).convert("RGB")
+                     .resize((a.resolution, a.resolution)))
+    pairs = [(pipe(prompt=a.prompt, control_image=C.to_model_range(img)[None], seed=a.seed,
+                   **kw)[0], Path(a.save_path) / "res.png")]
+    b = cli.parse_args(batch_argv)
+    ds = Subjects200K(b.data_path, b.condition_types[0], resolution=b.resolution,
+                      split="test")
+    samples = [ds[i] for i in range(min(b.batch_size, len(ds)))]
+    ref = pipe(prompt=[s["descriptions"] for s in samples],
+               control_image=np.stack([C.to_model_range(s["condition_image"])
+                                       for s in samples]), seed=b.seed,
+               **dict(kw, condition_prompt=[a.condition_types[0]] * len(samples)))
+    pairs += [(ref[i], Path(b.save_path) / f"{i:05d}" / "res.png")
+              for i in range(len(samples))]
+    diffs = [code_diff(torch, want, read_png(torch, path)) for want, path in pairs]
+    return len(pairs), max(diffs)
+
+
+def served_inputs(torch, pipe, req, res):
+    """A request line's inputs as the server's protocol defines them: the
+    control image resized with Lanczos to [-1, 1], the prompt's embeddings
+    and the condition name's pooled embedding."""
+    import numpy as np
+    from PIL import Image
+    pil = Image.open(req["control"]).convert("RGB").resize((res, res), Image.LANCZOS)
+    px = torch.from_numpy((np.asarray(pil, np.float32) / 127.5 - 1.0).transpose(2, 0, 1)[None]
+                          .copy())
+    e, p = pipe.encode_prompt(req["prompt"])
+    return dict(prompt_embeds=e, pooled=p,
+                cond_pooled=pipe.encode_condition_prompt(req["condition"]),
+                control_pixels=px)
+
+
+def stacked(torch, rows):
+    return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+
+def entry_serve_check(torch, pipe, batched, stepped, steps, res):
+    """``cli.serve``'s PNGs against ``pipe.generate`` at the shapes they were
+    served at. ``batched``: (request lines, batch size) of the
+    request-batched run, whose batches are the lines in order; each PNG
+    against generate of its batch, bit for bit. ``stepped``: (request lines,
+    slots, the paths saved) of the --step-server run, where every exact tick
+    runs all slots: each saved PNG against generate of all the lines at
+    b = slots, with the server's per-request noise (its seed), each control
+    VAE-encoded alone (as admission does) and each row decoded alone (as
+    retirement does), each row routed by itself as the server routes it;
+    the image of a cancelled request is not there.
+    -> {run: (images compared, largest uint8 difference)}."""
+    import dataclasses
+    out = {}
+    lines, b = batched
+    diffs = []
+    for i in range(0, len(lines), b):
+        part = lines[i:i + b]
+        imgs = pipe.generate(**stacked(torch, [served_inputs(torch, pipe, r, res)
+                                               for r in part]),
+                             height=res, width=res, num_inference_steps=steps)
+        diffs += [code_diff(torch, imgs[j], read_png(torch, r["out"]))
+                  for j, r in enumerate(part)]
+    out["batched"] = (len(diffs), max(diffs))
+
+    lines, slots, saved = stepped
+    if len(lines) != slots or pipe.cfg.family != "sd3":
+        raise SystemExit("entry_serve_check: an SD3 step-server run fills every slot once")
+    dev, dt = pipe.device, pipe.dtype
+    vs = pipe.vae_cfg.downscale
+    shape = (1, pipe.cfg.sd3.in_channels, res // vs, res // vs)
+    x = stacked(torch, [served_inputs(torch, pipe, r, res) for r in lines])
+    x["latents"] = torch.cat([
+        torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(r.get("seed", 0)),
+                    device=dev, dtype=dt) for r in lines])
+    encode, decode, cfg = pipe.encode_control, pipe.decode, pipe.cfg
+    pipe.encode_control = lambda px: torch.cat([encode(px[i:i + 1].float())
+                                                for i in range(px.shape[0])])
+    pipe.decode = lambda lat: torch.cat([decode(lat[i:i + 1]) for i in range(lat.shape[0])])
+    pipe.cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+        cfg.control, moe=dataclasses.replace(cfg.control.moe, batch_mode="per_sample")))
+    try:
+        imgs = pipe.generate(**x, height=res, width=res, num_inference_steps=steps)
+    finally:
+        del pipe.encode_control, pipe.decode
+        pipe.cfg = cfg
+    diffs = [code_diff(torch, imgs[i], read_png(torch, r["out"]))
+             for i, r in enumerate(lines) if r["out"] in saved]
+    out["step_server"] = (len(diffs), max(diffs))
+    return out
+
+
+def entry_eval_check(card, cpu, rel=1e-4):
+    """The evaluation CLI's aggregate on the card against the same run with
+    --device cpu: the same keys and count, every number within ``rel`` of
+    the CPU's (and 1e-6 absolute, for values at 0). -> {key: relative
+    difference}; raises on a miss."""
+    if card.keys() != cpu.keys() or card.get("count") != cpu.get("count"):
+        raise SystemExit(f"entry_eval_check: {card} against {cpu}")
+    diffs = {}
+    for k, want in cpu.items():
+        got = card[k]
+        if isinstance(want, float):
+            diffs[k] = abs(got - want) / max(abs(want), 1e-12)
+            if not abs(got - want) <= rel * abs(want) + 1e-6:
+                raise SystemExit(f"entry_eval_check: {k} {got} on the card, {want} on the "
+                                 f"CPU (relative limit {rel})")
+        elif got != want:
+            raise SystemExit(f"entry_eval_check: {k} {got!r} != {want!r}")
+    return diffs
+
+
+def depth_condition_check(torch, params, params_cpu, cfg, imgs):
+    """make_depth_fn on ``params``' device and on the CPU over ``imgs``
+    (uint8 HWC): -> (ms per image on the device, the median after a
+    warm-up; the largest uint8 difference from the CPU's; the output
+    shape)."""
+    from unigen_tpu_torch.data.conditions import make_depth_fn
+    fn, fn_cpu = make_depth_fn(params, cfg), make_depth_fn(params_cpu, cfg)
+    fn(imgs[0])
+    times, diffs, shape = [], [], None
+    for img in imgs:
+        t0 = time.perf_counter()
+        got = fn(img)                 # a host array: the device work is done
+        times.append(time.perf_counter() - t0)
+        want = fn_cpu(img)
+        shape = got.shape
+        diffs.append(int(abs(got.astype(int) - want.astype(int)).max()))
+        if got.dtype.name != "uint8" or got.shape != img.shape or want.std() == 0:
+            raise SystemExit(f"depth_condition: output {got.dtype} {got.shape}, CPU std "
+                             f"{want.std()}")
+    return statistics.median(times) * 1e3, max(diffs), list(shape)
+
+
+def serve_lines(root, n, res, seed, name, cond):
+    """``n`` request lines of random control images under ``root``, each
+    with its own seed."""
+    return [dict(prompt=f"{name} request {i}: a photo of a red cube", condition=cond,
+                 control=str(write_control_png(root / f"{name}_control_{i}.png", res,
+                                               seed + 100 + i)),
+                 out=str(root / f"{name}_{i}.png"), seed=i) for i in range(n)]
+
+
+def percentiles(values):
+    import numpy as np
+    a = np.asarray(sorted(values), np.float64)
+    return dict(p50=float(np.percentile(a, 50)), p95=float(np.percentile(a, 95)))
+
+
+def phase_entry_points(torch, dev, seed, root, sd3_root, flux_root):
+    """10. The user entry points on 8c's SD3.5-medium directory and 4e's FLUX
+    directory (stub tokenizers put into each loaded pipeline):
+    10a entry_infer: cli.infer (W4A8 SD3, 512^2, 28 steps, CFG 7) loaded
+    once through cli.infer.load_pipeline, one single-prompt request, then
+    the test split of a Subjects-200K-layout dataset in batches of 2;
+    launches against the formula, entry_infer_check bit for bit, and the
+    kernel calls of one CFG forward against their plain versions.
+    10b entry_infer_flux: one cli.infer request on the FLUX directory.
+    10c entry_serve: cli.serve on 10a's pipeline at its default 4 steps,
+    request-batched (batch 2, four requests) and --step-server (4 slots,
+    four requests, the last cancelled), entry_serve_check.
+    10d entry_eval: cli.eval over 10a's batch output with --fid --dists on a
+    random full-size VGG16 file, then --fid on a random Depth-Anything-small
+    directory, each on the card and with --device cpu (entry_eval_check).
+    10e depth_condition: make_depth_fn of that Depth-Anything tree on four
+    512^2 images, on the card and on the CPU.
+    -> {kernel: launches over 10a-10c}."""
+    import io
+
+    import numpy as np
+
+    from unigen_tpu_torch.cli import eval as cli_eval
+    from unigen_tpu_torch.cli import infer as cli_infer
+    from unigen_tpu_torch.cli import serve as cli_serve
+    from unigen_tpu_torch.io.torch_bridge import load_depth_anything, read_checkpoint_dir
+    from unigen_tpu_torch.models.depth import DepthAnythingConfig
+    from unigen_tpu_torch.pipelines import caching
+
+    res, steps = PIPE_RES, SD3_PIPE_STEPS
+    data = root / "subjects200k"
+    write_subjects200k(data, ENTRY_SAMPLES, res, seed, test=ENTRY_SAMPLES)
+    control = write_control_png(root / "control.png", res, seed)
+    common = ["--basemodel", "UniGenSD3", "--pretrained_model_name_or_path", str(sd3_root),
+              "--ckpt_path", str(sd3_root / "adapter"), "--condition_types", "depth",
+              "--quantize", "w4a8", "--quantize_text", "w4a8", "--dtype", "bf16",
+              "--resolution", str(res), "--num_inference_steps", str(steps),
+              "--guidance_scale", str(SD3_PIPE_GUIDANCE), "--seed", str(seed),
+              "--device", str(dev)]
+    single = common + ["--prompt", "a photo of a red cube", "--control_image", str(control),
+                       "--save_path", str(root / "infer_single")]
+    batch = common + ["--data_path", str(data), "--batch_size", str(BATCH),
+                      "--max_samples", str(ENTRY_SAMPLES), "--save_path",
+                      str(root / "infer_batch")]
+    totals = {}
+
+    # 10a
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pipe = cli_infer.load_pipeline(cli_infer.parse_args(single))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    set_stub_tokenizers(pipe, seed)
+    pipe._prompt_cache = caching.PromptLRU(64)
+    # the condition names, one and one a sample of a batch, cached first: the
+    # misses then count the prompt encodes
+    pipe.encode_condition_prompt("depth")
+    pipe.encode_condition_prompt(["depth"] * BATCH)
+    te = pipe.text_encoders
+    per_prompt = text_launches(*(te[k][0] for k in ("clip_l", "clip_g", "t5")))
+    runs = {}
+    reset_launch_counts()
+    misses = pipe._prompt_cache.misses
+    for name, argv, images in (("single", single, 1), ("batch", batch, ENTRY_SAMPLES)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_infer.main(argv, pipeline=pipe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = dict(images=images, wall_s=wall, images_per_s=images / wall)
+    launches = nonzero(launch_counts())
+    encodes = pipe._prompt_cache.misses - misses
+    calls = [(1, steps, 0)] + [(BATCH, steps, 0)] * (ENTRY_SAMPLES // BATCH)
+    want = add_counts((1, expected_sd3_pipeline_launches(pipe.params, pipe.cfg, calls)),
+                      (encodes, per_prompt))
+    emit(dict(phase="entry_infer", family="sd3", load_s=load_s, steps=steps, resolution=res,
+              runs=runs, prompt_encodes=encodes, launches=launches, expected_launches=want))
+    if launches != want or encodes != 1 + ENTRY_SAMPLES // BATCH:
+        raise SystemExit(f"entry_infer: launches {launches} != expected {want} "
+                         f"({encodes} encodes)")
+    totals = add_counts((1, launches))
+    t0 = time.time()
+    compared, worst = entry_infer_check(torch, pipe, single, batch)
+    emit(dict(phase="entry_infer_check", images=compared, max_code_diff=worst,
+              s=time.time() - t0))
+    if worst or compared != 1 + BATCH:
+        raise SystemExit(f"entry_infer_check: {compared} images, largest difference {worst}")
+    e, p = pipe.encode_prompt("a photo of a red cube")
+    cond = pipe.encode_condition_prompt("depth")
+    px = torch.rand(1, 3, res, res, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+    kernel_path_check(torch, "entry_infer_path_check", (
+        ("cfg_forward", sd3_pipeline_forward(torch, pipe, e, p, cond,
+                                             pipe.encode_control(px.to(dev)), seed),
+         sd3_forward_launches_quantized(pipe.params, pipe.cfg, 2)),))
+
+    # 10c (on 10a's pipeline, before it is freed for 10b)
+    serve_root = root / "serve"
+    batched = serve_lines(serve_root, SERVE_REQUESTS, res, seed, "batched", "depth")
+    stepped = serve_lines(serve_root, STEPSERVE_SLOTS, res, seed, "stepped", "depth")
+    serve_common = ["--family", "sd3", "--resolution", str(res), "--condition-types", "depth"]
+    serve_runs = {}
+    for name, argv, lines in (
+            ("batched", serve_common + ["--batch-size", str(BATCH), "--max-wait-ms", "60000"],
+             batched),
+            ("step_server", serve_common + ["--step-server", "--batch-size",
+                                            str(STEPSERVE_SLOTS)], stepped)):
+        text = "".join(json.dumps(r) + "\n" for r in lines)
+        if name == "step_server":
+            text += json.dumps({"cancel": lines[-1]["out"]}) + "\n"
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = cli_serve.main(argv, pipeline=pipe, stdin=io.StringIO(text))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = nonzero(launch_counts())
+        totals = add_counts((1, totals), (1, launches))
+        lat = percentiles(summary["latency_s"].values())
+        serve_runs[name] = summary
+        emit(dict(phase="entry_serve", mode=name, requests=len(lines),
+                  images=len(summary["saved"]), wall_s=wall,
+                  images_per_s=len(summary["saved"]) / wall, latency_s=lat,
+                  cancels=summary.get("cancels"), stats=summary["stats"], launches=launches))
+        if any(not launches.get(k) for k in ("flash_attention", "w4a8_matmul", "quantize_act")):
+            raise SystemExit(f"entry_serve {name}: a kernel of the path was not launched: "
+                             f"{launches}")
+    if serve_runs["batched"]["stats"]["batches"] != SERVE_REQUESTS // BATCH \
+            or len(serve_runs["batched"]["saved"]) != SERVE_REQUESTS:
+        raise SystemExit(f"entry_serve batched: {serve_runs['batched']['stats']}")
+    if not serve_runs["step_server"]["cancels"].get(stepped[-1]["out"]) \
+            or len(serve_runs["step_server"]["saved"]) != STEPSERVE_SLOTS - 1:
+        raise SystemExit(f"entry_serve step_server: cancels "
+                         f"{serve_runs['step_server']['cancels']}, saved "
+                         f"{serve_runs['step_server']['saved']}")
+    t0 = time.time()
+    check = entry_serve_check(torch, pipe, (batched, BATCH),
+                              (stepped, STEPSERVE_SLOTS, serve_runs["step_server"]["saved"]),
+                              4, res)
+    emit(dict(phase="entry_serve_check", s=time.time() - t0,
+              **{k: dict(images=n, max_code_diff=d) for k, (n, d) in check.items()}))
+    if check["batched"][1] or check["step_server"][1] > ENTRY_SERVE_CODES:
+        raise SystemExit(f"entry_serve_check: {check}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10b
+    flux_argv = ["--basemodel", "UniGenFlux", "--pretrained_model_name_or_path", str(flux_root),
+                 "--ckpt_path", str(flux_root / "adapter"), "--condition_types", "canny",
+                 "--quantize", "w4a8", "--quantize_text", "w4a8", "--resolution", str(res),
+                 "--num_inference_steps", str(STEPS), "--prompt", "a photo of a red cube",
+                 "--control_image", str(control), "--save_path", str(root / "infer_flux"),
+                 "--seed", str(seed), "--device", str(dev)]
+    t0 = time.time()
+    fpipe = cli_infer.load_pipeline(cli_infer.parse_args(flux_argv))
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    fpipe.tokenizer = SeededTokenizer(fpipe.clip_cfg.vocab_size, fpipe.clip_cfg.vocab_size - 1,
+                                      seed)
+    fpipe.tokenizer_2 = SeededTokenizer(fpipe.t5_cfg.vocab_size, 1, seed + 1)
+    fpipe._prompt_cache = caching.PromptLRU(64)
+    fpipe.encode_condition_prompt("canny")
+    reset_launch_counts()
+    misses = fpipe._prompt_cache.misses
+    t0 = time.perf_counter()
+    cli_infer.main(flux_argv, pipeline=fpipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nonzero(launch_counts())
+    encodes = fpipe._prompt_cache.misses - misses
+    want = add_counts((1, expected_pipeline_launches(fpipe.params, fpipe.cfg, [(1, STEPS, 0)])),
+                      (encodes, text_launches(fpipe.clip_params, fpipe.t5_params)))
+    img = read_png(torch, root / "infer_flux" / "res.png")
+    emit(dict(phase="entry_infer_flux", depth=list(LOAD_FLUX_DEPTH), load_s=load_s,
+              steps=STEPS, wall_s=wall, images_per_s=1 / wall, prompt_encodes=encodes,
+              launches=launches, expected_launches=want, out_shape=list(img.shape)))
+    if launches != want or tuple(img.shape) != (res, res, 3):
+        raise SystemExit(f"entry_infer_flux: launches {launches} != expected {want}")
+    totals = add_counts((1, totals), (1, launches))
+    del fpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10d
+    vgg_path = root / "vgg16_features.pth"
+    depth_dir = root / "depth_anything_small"
+    dcfg = DepthAnythingConfig()
+    vgg_n, vgg_bytes = write_vgg16_features(torch, vgg_path, seed, dev)
+    depth_n, depth_bytes = write_depth_anything(torch, depth_dir, dcfg, seed, dev)
+    for name, flags in (("vgg16", ["--fid", "--dists", "--extractor", f"vgg16:{vgg_path}"]),
+                        ("dinov2", ["--fid", "--extractor", f"dinov2:{depth_dir}"])):
+        argv = ["--results_dir", str(root / "infer_batch")] + flags
+        t0 = time.perf_counter()
+        card = cli_eval.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = cli_eval.main(argv + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        diffs = entry_eval_check(card, cpu, ENTRY_EVAL_REL)
+        emit(dict(phase="entry_eval", extractor=name,
+                  parameters=vgg_n if name == "vgg16" else depth_n,
+                  file_bytes=vgg_bytes if name == "vgg16" else depth_bytes,
+                  card_s=card_s, cpu_s=cpu_s, card=card, cpu=cpu, relative_diff=diffs,
+                  limit=ENTRY_EVAL_REL))
+
+    # 10e
+    params = load_depth_anything(read_checkpoint_dir(str(depth_dir)), dcfg, device=dev)
+    params_cpu = load_depth_anything(read_checkpoint_dir(str(depth_dir)), dcfg, device="cpu")
+    rng = np.random.default_rng(seed + 7)
+    imgs = [rng.integers(0, 256, (res, res, 3), dtype=np.uint8) for _ in range(DEPTH_IMAGES)]
+    ms, worst, shape = depth_condition_check(torch, params, params_cpu, dcfg, imgs)
+    emit(dict(phase="depth_condition", images=DEPTH_IMAGES, resolution=res,
+              model_resolution=res // dcfg.patch_size * dcfg.patch_size,
+              ms_per_image=ms, max_code_diff=worst, out_shape=shape))
+    if worst > 1:
+        raise SystemExit(f"depth_condition: {worst} codes from the CPU's")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return totals
 
 
 # ------------------------------------------------------------ the SANA family
@@ -6025,6 +6609,11 @@ def main() -> int:
         # 4f. the training entry point on 4e's directory
         phase_train_cli(torch, dev, args.seed, CHECKPOINTS / "flux")
         done("4f train_cli")
+        # 10. the inference, serving and evaluation entry points on the same
+        # directories, the evaluation towers and the depth condition
+        entry_launches = phase_entry_points(torch, dev, args.seed, CHECKPOINTS / "entry",
+                                            CHECKPOINTS / "sd35_medium", CHECKPOINTS / "flux")
+        done("10 entry_points")
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
@@ -6043,7 +6632,7 @@ def main() -> int:
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
-    # 10. kernels line: the dominant main-path shape of each kernel; launches
+    # 11. kernels line: the dominant main-path shape of each kernel; launches
     # from the main path that runs it (training for the FLUX kernels, with
     # the serving run's beside the forward kernels; SD3 serving for the
     # rope-free forward, with train_blocks' beside it; train_blocks for the
@@ -6103,6 +6692,8 @@ def main() -> int:
             entry["train_lora_launches"] = lora_launches[name]
         if name in sana_launches:
             entry["sana_launches"] = sana_launches[name]
+        if name in entry_launches:
+            entry["entry_points_launches"] = entry_launches[name]
         if name == "flash_attention":
             entry["sd3_base_forward_launches"] = sd3_base
         if name in ("flash_attention_rope",) + BWD_NAMES:

@@ -111,8 +111,9 @@ def test_native_library_and_numpy_path_match_jax(images, monkeypatch):
 
 
 def test_conditions_match_jax(images):
-    """Every synthesizer and helper gives JAX's bits; ``make_depth_fn``
-    waits for the port of models/depth.py (ROADMAP Queue 1 item 9)."""
+    """Every synthesizer and helper gives JAX's bits (``make_depth_fn``, on
+    a Depth-Anything tree, is held against JAX's in
+    ``tests/test_torch_port_depth.py``)."""
     img = images[0]
     assert t_cond.CONDITION_TYPE_IDS == j_cond.CONDITION_TYPE_IDS
     _equal(t_cond.to_model_range(img), j_cond.to_model_range(img))
@@ -128,8 +129,6 @@ def test_conditions_match_jax(images):
            j_cond.synthesize("depth", img, depth_fn=depth))
     for kind in ("subject", "canny"):
         assert t_cond.condition_id_offset(kind, 64) == j_cond.condition_id_offset(kind, 64)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_cond.make_depth_fn({})
 
 
 def test_reference_resize_rules_match_jax():

@@ -1,5 +1,6 @@
-"""The port's import rule: every module of ``unigen_tpu_torch`` and
-``chip_smoke.py`` import without JAX and without the JAX package, and
+"""The port's import rule: every module of ``unigen_tpu_torch`` (the
+entry points and the evaluation towers among them) and ``chip_smoke.py``
+import without JAX and without the JAX package, and
 without ``safetensors`` or ``transformers`` (the card host has neither:
 the loaders read safetensors files themselves and import transformers'
 tokenizers only when a checkpoint holds one). Checked in a fresh
@@ -24,7 +25,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "unigen_tpu" or m.startswith("unigen_tpu.")
              or m.split(".")[0] in ("safetensors", "transformers"))
-print(len(names), "modules")
+print(len(names), "modules", " ".join(names))
 if bad:
     raise SystemExit(f"imported {bad}")
 """
@@ -34,8 +35,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", PROBE, str(ROOT)], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]
-    n = int(out.stdout.split()[0])
-    assert n >= 50
+    n, _, *imported = out.stdout.split()
+    assert int(n) >= 50
+    for name in ("eval", "models.vgg", "models.depth", "cli.infer", "cli.serve", "cli.eval"):
+        assert f"unigen_tpu_torch.{name}" in imported, name
     for name in ("serving_steps", "serving_cache", "torch_bridge", "torch_bridge_sd3",
                  "loading", "sd3", "lora", "checkpoint", "datasets", "sampler", "prefetch",
                  "native", "conditions", "train", "sana", "blocks_sana", "gemma_text",

@@ -94,12 +94,38 @@ _SYNTH: Dict[str, Callable] = {
 }
 
 
-def make_depth_fn(params: dict, cfg=None, *, target_multiple: int = 14):
-    """The depth synthesizer from a Depth-Anything tree: it waits for the
-    port of ``models/depth.py`` (ROADMAP Queue 1 item 9). Depth conditions
-    come pre-rendered from the dataset until then."""
-    raise NotImplementedError("make_depth_fn waits for the port of models/depth.py "
-                              "(ROADMAP Queue 1 item 9)")
+def make_depth_fn(params: dict, cfg=None, *, target_multiple: int = 14) -> Callable:
+    """The depth synthesizer from a loaded Depth-Anything tree
+    (``models/depth`` + ``io/torch_bridge.load_depth_anything``; the
+    reference's depth-anything-small-hf pipeline, condition.py:52-60), run
+    on the device the tree lies on. Each image is resized with Pillow's
+    bilinear filter to a multiple of ``target_multiple``, ImageNet-
+    normalised, mapped to its relative depth and back to a uint8 HWC image
+    of its own size, like every other synthesizer."""
+    import torch
+    from PIL import Image as PILImage
+
+    from unigen_tpu_torch.models.depth import (DepthAnythingConfig, depth_forward,
+                                               depth_to_condition_image)
+    from unigen_tpu_torch.models.vgg import IMAGENET_MEAN, IMAGENET_STD
+    cfg = cfg or DepthAnythingConfig()
+    dev = params["backbone"]["cls_token"].device
+
+    def depth_fn(img_u8: np.ndarray) -> np.ndarray:
+        h, w = img_u8.shape[:2]
+        mh = max(target_multiple, h // target_multiple * target_multiple)
+        mw = max(target_multiple, w // target_multiple * target_multiple)
+        resized = np.asarray(PILImage.fromarray(img_u8).resize((mw, mh), PILImage.BILINEAR))
+        x = (resized.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        px = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None])).to(dev)
+        with torch.no_grad():
+            out = depth_to_condition_image(depth_forward(params, cfg, px))[0]
+        out_hwc = np.clip(out.to("cpu").numpy().transpose(1, 2, 0), 0, 255).astype(np.uint8)
+        if (mh, mw) != (h, w):
+            out_hwc = np.asarray(PILImage.fromarray(out_hwc).resize((w, h), PILImage.BILINEAR))
+        return out_hwc
+
+    return depth_fn
 
 
 def synthesize(condition_type: str, img_u8: np.ndarray,

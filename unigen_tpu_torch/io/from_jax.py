@@ -23,7 +23,10 @@ float leaves N(0, 0.02)), so the bf16 source tree is never built.
 (the interleaved one, or the UniGenBase variant's), and
 ``init_sana_serving_params`` for the bf16 UniGen-SANA tree. The Gemma-2
 and DC-AE trees of the JAX package move by ``tree_from_numpy`` as the
-others do (Gemma's layers are a list, the DC-AE's stages lists of lists).
+others do (Gemma's layers are a list, the DC-AE's stages lists of lists),
+and so do the evaluation towers: VGG16's list of ``{"w", "b"}``
+convolutions and the Depth-Anything tree (its layers, reassemble, neck and
+fusion stages lists of dicts).
 """
 
 from __future__ import annotations

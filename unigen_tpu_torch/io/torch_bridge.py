@@ -22,6 +22,9 @@ port's parameter trees (port of ``unigen_tpu/io/torch_bridge.py``).
   load_t5_encoder         transformers T5EncoderModel
   load_vae                diffusers AutoencoderKL
   load_gemma_text         transformers Gemma2Model (SANA's prompt encoder)
+  load_depth_anything     transformers DepthAnythingForDepthEstimation (the
+                          depth condition and the FD-DINOv2 tower; convs
+                          kept OIHW, as models/depth takes them)
 
 Conventions, as the JAX package's: a Linear [out, in] -> {"w": [in, out]},
 LayerNorm weight/bias -> scale/bias, RMSNorm weight -> scale, Conv2d OIHW
@@ -756,6 +759,85 @@ def load_vae(sd, block_out_channels=(128, 256, 512, 512), layers_per_block: int 
 
     return {"encoder": half("encoder", "down", layers_per_block, "downsamplers"),
             "decoder": half("decoder", "up", layers_per_block + 1, "upsamplers")}
+
+
+# ------------------------------------------------------------ Depth-Anything
+
+#: keys of transformers' DepthAnythingForDepthEstimation that inference
+#: never reads (DINOv2's mask token serves masked-image pretraining only)
+DEPTH_UNUSED_KEYS = ("backbone.embeddings.mask_token",)
+
+
+def _conv_raw(sd, name, put: _Put, *, bias: bool = True):
+    """A convolution kept in torch's OIHW layout (models/depth's)."""
+    p = {"w": put(sd[f"{name}.weight"])}
+    if bias and f"{name}.bias" in sd:
+        p["b"] = put(sd[f"{name}.bias"])
+    return p
+
+
+def load_depth_anything(sd, cfg=None, *, dtype=torch.float32, strict: bool = True,
+                        device=None) -> dict:
+    """transformers DepthAnythingForDepthEstimation state dict -> the
+    models/depth tree (the reference's depth-anything-small-hf condition
+    synthesizer, src/condition.py:52-60). One dict comes back; ``cfg``
+    (default ``DepthAnythingConfig()``, Depth-Anything-small) gives the
+    depth and the reassemble factors. With ``strict`` a checkpoint key that
+    maps to nothing (other than ``DEPTH_UNUSED_KEYS``) raises."""
+    from unigen_tpu_torch.models.depth import DepthAnythingConfig
+    cfg = cfg or DepthAnythingConfig()
+    put = _Put(resolve_device(device), dtype)
+    sd = _TrackingSD(sd)
+
+    def layer(i):
+        p = f"backbone.encoder.layer.{i}"
+        out = {"norm1": _ln(sd, f"{p}.norm1", put),
+               "attn": {"q": _lin(sd, f"{p}.attention.attention.query", put),
+                        "k": _lin(sd, f"{p}.attention.attention.key", put),
+                        "v": _lin(sd, f"{p}.attention.attention.value", put),
+                        "out": _lin(sd, f"{p}.attention.output.dense", put)},
+               "norm2": _ln(sd, f"{p}.norm2", put),
+               "fc1": _lin(sd, f"{p}.mlp.fc1", put),
+               "fc2": _lin(sd, f"{p}.mlp.fc2", put)}
+        if f"{p}.layer_scale1.lambda1" in sd:
+            out["ls1"] = put(sd[f"{p}.layer_scale1.lambda1"])
+            out["ls2"] = put(sd[f"{p}.layer_scale2.lambda1"])
+        return out
+
+    backbone = {
+        "cls_token": put(sd["backbone.embeddings.cls_token"]),
+        "pos_embed": put(sd["backbone.embeddings.position_embeddings"]),
+        "patch_embed": _conv_raw(sd, "backbone.embeddings.patch_embeddings.projection", put),
+        "layers": [layer(i) for i in range(cfg.num_layers)],
+        "norm": _ln(sd, "backbone.layernorm", put)}
+    reassemble = []
+    for i, factor in enumerate(cfg.reassemble_factors):
+        p = f"neck.reassemble_stage.layers.{i}"
+        r = {"proj": _conv_raw(sd, f"{p}.projection", put)}
+        if factor != 1:
+            # a ConvTranspose2d weight keeps its [in, out, f, f]
+            r["resize"] = _conv_raw(sd, f"{p}.resize", put)
+        reassemble.append(r)
+    fusion = []
+    for i in range(len(cfg.neck_hidden_sizes)):
+        p = f"neck.fusion_stage.layers.{i}"
+        fusion.append({
+            "proj": _conv_raw(sd, f"{p}.projection", put),
+            "res1": {"conv1": _conv_raw(sd, f"{p}.residual_layer1.convolution1", put),
+                     "conv2": _conv_raw(sd, f"{p}.residual_layer1.convolution2", put)},
+            "res2": {"conv1": _conv_raw(sd, f"{p}.residual_layer2.convolution1", put),
+                     "conv2": _conv_raw(sd, f"{p}.residual_layer2.convolution2", put)}})
+    tree = {"backbone": backbone, "reassemble": reassemble,
+            "neck_convs": [_conv_raw(sd, f"neck.convs.{i}", put, bias=False)
+                           for i in range(len(cfg.neck_hidden_sizes))],
+            "fusion": fusion,
+            "head": {"conv1": _conv_raw(sd, "head.conv1", put),
+                     "conv2": _conv_raw(sd, "head.conv2", put),
+                     "conv3": _conv_raw(sd, "head.conv3", put)}}
+    if strict:
+        sd.used.update(k for k in DEPTH_UNUSED_KEYS if k in sd)
+        _check_strict(sd, "Depth-Anything")
+    return tree
 
 
 # ------------------------------------------------------------ Gemma-2 (SANA)

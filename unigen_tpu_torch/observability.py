@@ -1,15 +1,19 @@
-"""Logging for training (port of the parts of ``unigen_tpu/observability.py``
-that the training loop and its entry point use): the crash-proof log
-handler, ``setup_logging``, ``param_report`` and the per-step line. The
-port runs one process, so it is always rank 0; ``profile`` and
-``assert_replica_consistency`` wait for ROADMAP Queue 1 item 9.
+"""Logging, tracing and profiling (port of ``unigen_tpu/observability.py``):
+the crash-proof log handler, ``setup_logging``, ``debug_print``,
+``param_report``, the per-step line, ``phase`` (a named range in profiler
+traces) and ``profile`` (a ``torch.profiler`` trace written as a Chrome
+trace). The port runs one process, so it is always rank 0;
+``assert_replica_consistency`` waits for the port of the parallel layer
+(ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import sys
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -43,13 +47,47 @@ def setup_logging(work_dir: Optional[str] = None, *, level=logging.INFO,
     return logger
 
 
+def debug_print(*args, **kw) -> None:
+    """Process-0-only print (the port's one process is process 0)."""
+    print(*args, **kw)
+
+
 def param_report(tree: Any, name: str = "model") -> Dict[str, float]:
     """Parameter and byte counts of a tree, printed and returned."""
-    from unigen_tpu_torch.utils import param_bytes, tree_leaves
-    stats = {"params": sum(t.numel() for t in tree_leaves(tree)),
-             "gbytes": param_bytes(tree) / 1e9}
-    print(f"{name}: {stats['params'] / 1e6:.1f}M params, {stats['gbytes']:.2f} GB")
+    from unigen_tpu_torch.utils import param_bytes, param_count
+    stats = {"params": param_count(tree), "gbytes": param_bytes(tree) / 1e9}
+    debug_print(f"{name}: {stats['params'] / 1e6:.1f}M params, "
+                f"{stats['gbytes']:.2f} GB")
     return stats
+
+
+@contextlib.contextmanager
+def phase(name: str) -> Iterator[None]:
+    """A named range in ``torch.profiler`` traces (``record_function``)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def profile(log_dir: str, *, enabled: bool = True) -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA where a
+    device is present) and write it into ``log_dir`` as the Chrome trace
+    ``trace.json`` (the counterpart of JAX's ``jax.profiler`` trace)."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import ProfilerActivity
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield
+    finally:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def _to_numpy(v) -> np.ndarray:

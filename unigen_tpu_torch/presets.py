@@ -6,6 +6,41 @@ from __future__ import annotations
 from unigen_tpu_torch import config as C
 
 
+def flux_schnell(condition_types=("canny",), **ctrl_overrides) -> C.UniGenConfig:
+    """FLUX.1-schnell's hyperparameters (no guidance embedding)."""
+    return C.UniGenConfig(
+        family="flux",
+        flux=C.FluxBackboneConfig(guidance_embeds=False),
+        control=C.ControlConfig(**ctrl_overrides),
+        condition_types=tuple(condition_types),
+    )
+
+
+def flux_dev(condition_types=("canny",), **ctrl_overrides) -> C.UniGenConfig:
+    """FLUX.1-dev's hyperparameters (the guidance embedding)."""
+    return C.UniGenConfig(
+        family="flux",
+        flux=C.FluxBackboneConfig(guidance_embeds=True),
+        control=C.ControlConfig(**ctrl_overrides),
+        condition_types=tuple(condition_types),
+    )
+
+
+def flux_mini(condition_types=("canny",)) -> C.UniGenConfig:
+    """The full FLUX topology (19 double / 38 single, 9 + 19 control blocks,
+    MoE, shared expert) at width 512."""
+    return C.UniGenConfig(
+        family="flux",
+        flux=C.FluxBackboneConfig(
+            in_channels=64, num_layers=19, num_single_layers=38,
+            attention_head_dim=64, num_attention_heads=8,
+            joint_attention_dim=1024, pooled_projection_dim=256,
+            guidance_embeds=False, axes_dims_rope=(8, 28, 28)),
+        control=C.ControlConfig(),
+        condition_types=tuple(condition_types),
+    )
+
+
 def flux_bench(condition_types=("canny",)) -> C.UniGenConfig:
     """Real FLUX width (3072, 24 heads x 128) at reduced depth: 6 double /
     12 single base blocks, 3 + 6 control blocks, per-sample routing."""
@@ -29,6 +64,23 @@ def flux_full(condition_types=("canny",)) -> C.UniGenConfig:
         family="flux",
         flux=C.FluxBackboneConfig(guidance_embeds=False),
         control=C.ControlConfig(moe=C.MoEConfig(batch_mode="per_sample")),
+        condition_types=tuple(condition_types),
+    )
+
+
+def flux_train_bench(condition_types=("canny",), *,
+                     shared_expert: bool = True) -> C.UniGenConfig:
+    """Real FLUX width (3072) at 2 double / 4 single base blocks (1 + 2
+    control blocks), for one training step on one card;
+    ``shared_expert=False`` drops the shared expert."""
+    return C.UniGenConfig(
+        family="flux",
+        flux=C.FluxBackboneConfig(
+            in_channels=64, num_layers=2, num_single_layers=4,
+            attention_head_dim=128, num_attention_heads=24,
+            joint_attention_dim=4096, pooled_projection_dim=768,
+            guidance_embeds=False, axes_dims_rope=(16, 56, 56)),
+        control=C.ControlConfig(use_shared_expert=shared_expert),
         condition_types=tuple(condition_types),
     )
 

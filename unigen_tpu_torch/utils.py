@@ -110,6 +110,11 @@ def index_params(tree: Any, i: int) -> Any:
     return tree_map(lambda x: x[i], tree)
 
 
+def unstack_params(tree: Any, n: int) -> list:
+    """The ``n`` blocks of a stacked tree, each as views."""
+    return [index_params(tree, i) for i in range(n)]
+
+
 def stack_params(trees) -> Any:
     if isinstance(trees[0], dict):
         return {k: stack_params([t[k] for t in trees]) for k in trees[0]}
@@ -122,5 +127,15 @@ def init_stacked(n: int, init_fn: Callable[[], Any]) -> Any:
     return stack_params([init_fn() for _ in range(n)])
 
 
+def param_count(tree: Any) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
 def param_bytes(tree: Any) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
+    """Floating leaves cast to ``dtype``; integer leaves (quantized codes)
+    kept as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
