@@ -233,7 +233,38 @@ Phases, in order; any failure exits non-zero:
      10e depth_condition: make_depth_fn of that tree on DEPTH_IMAGES 512^2
      images (504^2 inside): ms per image on the card, uint8 within one
      code of the CPU's.
- 11. one JSON line listing the kernels; the last line is the JSON result.
+ 11 tools: the JAX package's remaining tools through the port's CLIs.
+     11f profile_forward (after phase 7, on phase 4's W4A8 flux_full tree):
+     cli.profile_forward --preset full --quant w4a8 --batches 1,2 --res 512,
+     every phase reported, the full phase bit for bit against
+     unigen_flux_forward, one full call's launches against the formula, one
+     attn call 19 + 38 RoPE launches. 11g profile_train (same tree):
+     cli.profile_train --preset full --remats full (TOOLS_REMATS; 6c times
+     "dots" beside "full"), no error row, the first step's loss equal to one
+     make_train_step on the same state and inputs with launches equal to
+     expected_train_launches; mfu beside the card's int8 peak. 11d
+     validate_flux (inside 8c/4e's try, after 10): cli.validate_real_ckpt on
+     4e's directory and .bin adapter (--skip-diffusers, 512^2): the
+     strict-load counts against the same files loaded here, its SSIM gate
+     on its cli.measure_fidelity --ckpt subprocess passed (4e's linears are
+     drawn as the port's linear init draws them) and consistent with the
+     fidelity that stage measured; 8c's SD3 directory (N(0, 0.02) weights,
+     which int4 codes serve below the gate) is validated where its
+     full-depth bf16 forward is finite, its verdict, a pass or a refusal,
+     held to its fidelity the same way, else the line says why not. 11e generate:
+     cli.generate --ckpt on 4e's directory with a control PNG, 4 steps,
+     launches against the formula, generate_check bit for bit against the
+     pipeline's own call. 11a-11c fidelity_flux / _sd3 / _sana (after 9c):
+     cli.measure_fidelity --ssim on the FLUX proxy (full width, 6/12
+     blocks, 256^2, 4 steps), the full SD3.5-medium (256^2, 28 CFG steps)
+     and the full SANA-1.6B (512^2, 20 steps), live gates, one tree at a
+     time; fidelity_check: the CLI's bf16 forward bit for bit against the
+     model's, every kernel call of one forward of each quantized path
+     against its plain version, each path's launches against the formulas,
+     the bf16 output finite, rel_err below FIDELITY_REL, e2e_ssim at least
+     FIDELITY_SSIM.
+ 12. one JSON line listing the kernels (tools_launches: phase 11's); the
+     last line is the JSON result.
 Phase 3 also holds the rope-free kernel against its plain version at every
 shape of the SD3 paths (D=64, ragged lengths), both attention kernels at
 the 1024^2 lengths, kernel 1 and its backward at the consis module's 3072
@@ -448,6 +479,11 @@ SERVE_REQUESTS = 4        # 10c: request-batched requests
 ENTRY_SERVE_CODES = 1     # 10c: the step server's images against generate
 ENTRY_EVAL_REL = 1e-4     # 10d: the card's metrics against the CPU's
 DEPTH_IMAGES = 4          # 10e
+FIDELITY_REL = 0.1        # 11a-11c: the largest rel_err of a quantized path's forward
+FIDELITY_SSIM = 0.99      # 11a-11c: the smallest e2e_ssim (validate_real_ckpt's gate)
+FIDELITY_RES = {"flux": 256, "sd3": 256, "sana": 512}   # 11a-11c (the CLI's own defaults)
+VALIDATE_SD3_RES = 256   # 11d: the SD3 directory's fidelity stage (11b's resolution)
+TOOLS_REMATS = "full"     # 11g: the remat policies timed (6c times "dots" beside "full")
 ROUTING_STEPS = 3         # 6c: timed micro-steps of each variant (the median read)
 CHECKPOINTS = Path(__file__).resolve().parent / "build" / "checkpoints"
 BWD_NAMES = ("flash_attention_rope_bwd_dq", "flash_attention_rope_bwd_dkv")
@@ -4050,12 +4086,17 @@ def vae_shapes(vcfg):
 SAFETENSORS_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
 
 
-def checkpoint_value(torch, name, shape, dtype, gen, device, fixed=None):
+def checkpoint_value(torch, name, shape, dtype, gen, device, fixed=None, uniform=False):
     """A checkpoint tensor on ``device``: ``fixed[name]`` where given (a
     position table), else drawn from ``gen``: a norm's 1-D weight
-    1 + N(0, 0.02), any other N(0, 0.02)."""
+    1 + N(0, 0.02), any other N(0, 0.02); with ``uniform`` a linear's 2-D
+    weight [out, in] is drawn as the port's linear init draws it,
+    U(-k, k) with k = 1/sqrt(in)."""
     if fixed and name in fixed:
         return fixed[name].to(device, dtype)
+    if uniform and len(shape) == 2 and name.endswith(".weight"):
+        k = 1.0 / math.sqrt(shape[1])
+        return torch.empty(shape, dtype=dtype, device=device).uniform_(-k, k, generator=gen)
     out = torch.empty(shape, dtype=dtype, device=device).normal_(0.0, 0.02, generator=gen)
     if len(shape) == 1 and "norm" in name and name.endswith(".weight"):
         out += 1.0
@@ -4072,12 +4113,12 @@ def sd3_tables(torch, cfg, device):
     return {"pos_embed.pos_embed": table, "control_pos_embed_input.pos_embed": table}
 
 
-def write_safetensors(torch, path, shapes, dtype, gen, device, fixed=None):
+def write_safetensors(torch, path, shapes, dtype, gen, device, fixed=None, uniform=False):
     """Stream the tensors of ``shapes`` ({name: shape}, in order) into one
     safetensors file, each drawn on ``device`` (checkpoint_value) and written
     as it comes (``fixed`` as in checkpoint_value): the 8-byte header
-    length, the JSON header, the raw bytes.
-    -> bytes written."""
+    length, the JSON header, the raw bytes (``uniform`` as in
+    checkpoint_value). -> bytes written."""
     import struct
     itemsize = torch.empty((), dtype=dtype).element_size()
     header, off = {"__metadata__": {"format": "pt"}}, 0
@@ -4092,13 +4133,13 @@ def write_safetensors(torch, path, shapes, dtype, gen, device, fixed=None):
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
         for name, shape in shapes.items():
-            t = checkpoint_value(torch, name, shape, dtype, gen, device, fixed)
+            t = checkpoint_value(torch, name, shape, dtype, gen, device, fixed, uniform)
             f.write(t.reshape(-1).view(torch.uint8).cpu().numpy().data)
     return 8 + len(head) + off
 
 
 def write_component(torch, dirpath, shapes, dtype, gen, device, config=None,
-                    shards=1, stem="model", fixed=None):
+                    shards=1, stem="model", fixed=None, uniform=False):
     """A diffusers / transformers component directory: its config.json and
     its tensors in ``shards`` safetensors files (named as the libraries name
     sharded files, with their index). -> bytes written."""
@@ -4112,7 +4153,8 @@ def write_component(torch, dirpath, shapes, dtype, gen, device, config=None,
         part = {n: shapes[n] for n in names[s * per:(s + 1) * per]}
         fname = (f"{stem}.safetensors" if shards == 1
                  else f"{stem}-{s + 1:05d}-of-{shards:05d}.safetensors")
-        total += write_safetensors(torch, dirpath / fname, part, dtype, gen, device, fixed)
+        total += write_safetensors(torch, dirpath / fname, part, dtype, gen, device, fixed,
+                                   uniform)
         index.update({n: fname for n in part})
     if shards > 1:
         (dirpath / f"{stem}.safetensors.index.json").write_text(
@@ -4120,10 +4162,10 @@ def write_component(torch, dirpath, shapes, dtype, gen, device, config=None,
     return total
 
 
-def write_reference_adapter_bins(torch, dirpath, shapes, dtype, gen, device):
+def write_reference_adapter_bins(torch, dirpath, shapes, dtype, gen, device, uniform=False):
     """The reference trainer's adapter layout: one ``torch.save``d state dict
     per top-level module, ``{module}_weights_{idx}.bin``, keys without the
-    module prefix. -> bytes written."""
+    module prefix (``uniform`` as in checkpoint_value). -> bytes written."""
     dirpath.mkdir(parents=True, exist_ok=True)
     by_module = {}
     for name, shape in shapes.items():
@@ -4131,7 +4173,8 @@ def write_reference_adapter_bins(torch, dirpath, shapes, dtype, gen, device):
         by_module.setdefault(module, {})[rest] = shape
     total = 0
     for idx, (module, part) in enumerate(sorted(by_module.items())):
-        sd = {k: checkpoint_value(torch, f"{module}.{k}", s, dtype, gen, device).cpu()
+        sd = {k: checkpoint_value(torch, f"{module}.{k}", s, dtype, gen, device,
+                                  uniform=uniform).cpu()
               for k, s in part.items()}
         path = dirpath / f"{module}_weights_{idx}.bin"
         torch.save(sd, path)
@@ -4757,7 +4800,11 @@ def link_component(src, dst, config):
 def write_flux_checkpoint(torch, dev, root, cfg, seed, sd3_root):
     """A random FLUX.1 directory of ``cfg``'s sizes: the transformer (bf16,
     two shards) and the reference's adapter in its ``{module}_weights_{idx}
-    .bin`` layout drawn on ``dev`` from ``seed``; the VAE, CLIP-L and T5
+    .bin`` layout drawn on ``dev`` from ``seed``, their linears as the port's
+    linear init draws them (N(0, 0.02) weights of this width lose to int4
+    codes what a trained or torch-initialized linear does not, so the
+    validation's W4A8 fidelity gate would measure the draw; PERF §7); the
+    VAE, CLIP-L and T5
     weights linked from the SD3 directory ``sd3_root`` with FLUX's configs
     (the VAE's FLUX scaling; CLIP-L keeps its projection, which the loader
     reads where the file holds it). -> bytes per written component."""
@@ -4776,9 +4823,9 @@ def write_flux_checkpoint(torch, dev, root, cfg, seed, sd3_root):
              joint_attention_dim=bb.joint_attention_dim,
              pooled_projection_dim=bb.pooled_projection_dim,
              guidance_embeds=bb.guidance_embeds, axes_dims_rope=list(bb.axes_dims_rope)),
-        shards=2, stem="diffusion_pytorch_model")}
+        shards=2, stem="diffusion_pytorch_model", uniform=True)}
     written["adapter"] = write_reference_adapter_bins(torch, root / "adapter", adapter,
-                                                      torch.bfloat16, gen, dev)
+                                                      torch.bfloat16, gen, dev, uniform=True)
     text = sd3_text_configs()
     import dataclasses
     flux_vae = dataclasses.replace(sd3_vae_config(), scaling_factor=0.3611, shift_factor=0.1159)
@@ -6440,6 +6487,402 @@ def expected_sd3_base_launches(cfg, batch: int = 1) -> int:
             + n_cn)
 
 
+# ------------------------------------------------------------ 11. the tools
+
+def tool_forward_launches(family, params, cfg, batch):
+    """Kernel launches of one forward of ``family`` at ``batch``."""
+    if family == "flux":
+        return expected_launches(params, cfg, batch)
+    if family == "sd3":
+        return sd3_forward_launches_quantized(params, cfg, batch)
+    return expected_sana_launches(params, cfg)
+
+
+def fidelity_path_launches(family, params, cfg, steps):
+    """Launches of one measure_fidelity path with --ssim and no cache flag:
+    the b=1 forward, then the exact denoise (SD3's CFG pair at b=2)."""
+    return add_counts((1, tool_forward_launches(family, params, cfg, 1)),
+                      (steps, tool_forward_launches(family, params, cfg,
+                                                    2 if family == "sd3" else 1)))
+
+
+def direct_forward(torch, setup, params, dev):
+    """The family's model forward called directly on the setup's host batch
+    at the CLI's timestep (bf16): what the CLI's bf16 forward must equal bit
+    for bit."""
+    from unigen_tpu_torch.models.sana import sana_unigen_forward
+    from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
+    from unigen_tpu_torch.models.unigen_sd3 import unigen_sd3_forward
+    bf = torch.bfloat16
+    x = {k: torch.as_tensor(v).to(dev) for k, v in setup.batch.items()}
+    fp = {k: v.to(bf) for k, v in x.items() if not k.endswith("_ids")}
+    with torch.no_grad():
+        if setup.family == "flux":
+            t = torch.full((1,), 0.5, dtype=bf, device=dev)
+            out = unigen_flux_forward(params, setup.cfg, fp["hidden"], fp["condition"],
+                                      fp["encoder"], fp["pooled"], fp["condition_pooled"], t,
+                                      x["img_ids"], x["txt_ids"], x["condition_ids"])[0]
+        elif setup.family == "sd3":
+            t = torch.full((1,), 500.0, dtype=bf, device=dev)
+            out = unigen_sd3_forward(params, setup.cfg, fp["hidden"], fp["condition"],
+                                     fp["encoder"][:1], fp["pooled"][:1],
+                                     fp["condition_pooled"][:1], t)[0]
+        else:
+            t = torch.full((1,), 500.0, dtype=bf, device=dev)
+            out = sana_unigen_forward(params, setup.cfg, fp["hidden"], fp["condition"],
+                                      fp["encoder"], fp["pooled"], fp["condition_pooled"],
+                                      t)[0]
+    return out.float().cpu()
+
+
+def fidelity_check(torch, dev, family, res, out_dir):
+    """11a-11c. cli.measure_fidelity --family ``family`` --ssim at ``res`` on
+    the CLI's own random tree (live gates), its launches read per path
+    around the CLI's tree builder; then each path's tree again: the bf16
+    forward called directly equals the CLI's bit for bit, every kernel call
+    of one forward of each quantized path against its plain version, each
+    path's launches equal the forward formulas; the bf16 output's largest
+    |value| finite, rel_err finite and below FIDELITY_REL, e2e_ssim at least
+    FIDELITY_SSIM. -> the launches of the CLI's run."""
+    from unigen_tpu_torch.cli import measure_fidelity as mf
+    out_dir.mkdir(parents=True, exist_ok=True)
+    argv = ["--family", family, "--ssim", "--res", str(res), "--device", str(dev),
+            "--out", str(out_dir / f"fidelity_{family}.json")]
+    args = mf.parse_args(argv)
+    setup = mf.setup_for(args)
+    marks = []
+
+    def counted_init():
+        marks.append(launch_counts())
+        return setup.init_fn()
+    reset_launch_counts()
+    t0 = time.time()
+    result = mf.main(argv, init_fn=counted_init)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    marks.append(launch_counts())
+    total = nonzero(marks[-1])
+    got = [nonzero({k: b[k] - a[k] for k in a}) for a, b in zip(marks, marks[1:])]
+    report, host = result["json"], result["host"]
+    with open(out_dir / f"fidelity_{family}.json") as f:
+        written = json.load(f)
+    paths, checks = {}, {}
+    for i, path in enumerate(setup.paths):
+        params = setup.make_params(path)
+        want = fidelity_path_launches(family, params, setup.cfg, setup.num_steps)
+        rec = dict(seconds=host[path]["seconds"], peak_bytes=host[path]["peak_bytes"],
+                   launches=got[i], expected_launches=want)
+        if path == "bf16":
+            direct = direct_forward(torch, setup, params, dev)
+            cli = torch.from_numpy(host["bf16"]["fwd"])
+            rec.update(max_abs_out=direct.abs().max().item(),
+                       direct_equal=bool(torch.equal(direct, cli)))
+        else:
+            per = tool_forward_launches(family, params, setup.cfg, 1)
+            checks[path] = kernel_path_check(
+                torch, f"fidelity_{family}_path_check",
+                ((path, lambda: setup.forward(params, setup.batch),
+                  {k: n for k, n in per.items() if k != "rope_rotate"}),))[path]
+        paths[path] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase=f"fidelity_{family}", res=setup.res, steps=setup.num_steps,
+              wall_s=wall, report=report, paths=paths, launches=total))
+    bf16 = paths["bf16"]
+    quantized = [p for p in setup.paths if p != "bf16"]
+    bad = []
+    if not math.isfinite(bf16["max_abs_out"]):
+        bad.append(f"bf16 output not finite ({bf16['max_abs_out']})")
+    if not bf16["direct_equal"]:
+        bad.append("the CLI's bf16 forward differs from the model's")
+    if written != report:
+        bad.append("--out differs from the printed line")
+    for path in setup.paths:
+        if paths[path]["launches"] != paths[path]["expected_launches"]:
+            bad.append(f"{path} launches {paths[path]['launches']} != "
+                       f"{paths[path]['expected_launches']}")
+    for path in quantized:
+        rel, ssim = report[path]["rel_err"], report[path]["e2e_ssim"]
+        if not (math.isfinite(rel) and rel < FIDELITY_REL):
+            bad.append(f"{path} rel_err {rel} (limit {FIDELITY_REL})")
+        if not ssim >= FIDELITY_SSIM:
+            bad.append(f"{path} e2e_ssim {ssim} (gate {FIDELITY_SSIM})")
+    emit(dict(phase="fidelity_check", family=family, ok=not bad, problems=bad,
+              max_abs_out=bf16["max_abs_out"],
+              rel_err={p: report[p]["rel_err"] for p in quantized},
+              e2e_ssim={p: report[p]["e2e_ssim"] for p in quantized}))
+    if bad:
+        raise SystemExit(f"fidelity_check {family}: {bad}")
+    return total
+
+
+def strict_counts(report):
+    """{component: the parameter count} of a strict_load report's "ok (N
+    params...)" entries."""
+    out = {}
+    for comp, text in report["strict_load"].items():
+        m = re.match(r"ok \((\d+) params", text)
+        if m:
+            out[comp] = int(m.group(1))
+    return out
+
+
+def validate(cli_val, argv, out):
+    """cli.validate_real_ckpt.main(argv) -> its report, read from ``out``
+    where its SSIM gate refused the checkpoint. The gate's verdict must
+    agree with the fidelity it measured: the worst e2e_ssim of stage 3's
+    JSON, passed exactly when it reaches the gate; any other failure
+    stops the phase."""
+    try:
+        report = cli_val.main(argv)
+    except SystemExit as e:
+        if not str(e).startswith("SSIM gate FAILED"):
+            raise
+        with open(out) as f:
+            report = json.load(f)
+        report["ssim_gate"]["exit"] = str(e)
+    gate = report["ssim_gate"]
+    worst = min(v["e2e_ssim"] for v in report["quant_fidelity"].values()
+                if isinstance(v, dict))
+    if gate["worst"] != worst or gate["pass"] != (worst >= gate["gate"]) \
+            or ("exit" in gate) == gate["pass"]:
+        raise SystemExit(f"validate: the gate's verdict {gate} disagrees with stage 3's "
+                         f"worst e2e_ssim {worst}")
+    return report
+
+
+def generate_check(torch, pipe, args):
+    """cli.generate's PNG against the pipeline's own call with the same
+    arguments: its control image read, resized to the example's 512^2 and
+    turned into the condition, as the reference example does. -> the
+    largest uint8 difference."""
+    import numpy as np
+    from PIL import Image
+
+    from unigen_tpu_torch.cli.generate import RESOLUTION
+    from unigen_tpu_torch.data import conditions as C
+    img = np.asarray(Image.open(args.image).convert("RGB").resize((RESOLUTION, RESOLUTION)))
+    ref = pipe(prompt=args.prompt, condition_prompt=args.condition,
+               control_image=C.to_model_range(C.synthesize(args.condition, img))[None],
+               height=RESOLUTION, width=RESOLUTION, num_inference_steps=args.steps,
+               seed=args.seed)[0]
+    return code_diff(torch, ref.cpu(), read_png(torch, Path(args.out)))
+
+
+def phase_tools_checkpoints(torch, dev, seed, root, flux_root, sd3_root):
+    """11d validate_flux: cli.validate_real_ckpt on 4e's FLUX directory with
+    its .bin adapter (--skip-diffusers, 512^2): the strict-load counts equal
+    the leaf counts of the same files loaded here (11e's pipeline and the
+    adapter), stage 3
+    (cli.measure_fidelity --ckpt in a subprocess on the same card) runs to
+    its end, the gate's verdict agrees with it (``validate``) and passes;
+    then 8c's SD3 directory's bf16 forward at full depth, and its
+    validation only where that output is finite (its verdict held to its
+    fidelity, a pass not required: its linears are N(0, 0.02)). 11e generate: cli.generate --ckpt on
+    4e's directory (pipeline through cli.generate.load_pipeline, stub
+    tokenizers), launches against the formula, generate_check bit for bit.
+    -> the launches of 11d's in-process part and 11e."""
+    from unigen_tpu_torch.cli import generate as cli_gen
+    from unigen_tpu_torch.cli import measure_fidelity as mf
+    from unigen_tpu_torch.cli import validate_real_ckpt as cli_val
+    from unigen_tpu_torch.io import torch_bridge as tb
+    from unigen_tpu_torch.utils import param_count
+
+    root.mkdir(parents=True, exist_ok=True)
+    png = write_control_png(root / "generate_control.png", PIPE_RES, seed)
+    gen_argv = ["--ckpt", str(flux_root), "--image", str(png), "--condition", "canny",
+                "--steps", str(STEPS), "--out", str(root / "generate.png"),
+                "--device", str(dev), "--seed", str(seed)]
+    gargs = cli_gen.parse_args(gen_argv)
+    t0 = time.time()
+    pipe = cli_gen.load_pipeline(gargs)
+    torch.cuda.synchronize()
+    gen_load_s = time.time() - t0
+    pipe.tokenizer = SeededTokenizer(pipe.clip_cfg.vocab_size, pipe.clip_cfg.vocab_size - 1,
+                                     seed)
+    pipe.tokenizer_2 = SeededTokenizer(pipe.t5_cfg.vocab_size, 1, seed + 1)
+
+    # 11d
+    bb = pipe.cfg.flux
+    adapter = flux_root / "adapter"
+    want = {"transformer": param_count(pipe.params["base"])}
+    n_cn = bb.num_layers // pipe.cfg.control.single_control_dev
+    n_cn_s = bb.num_single_layers // pipe.cfg.control.single_control_dev
+    want["adapter"] = param_count(tb.load_adapter_checkpoint(
+        str(adapter), n_cn=n_cn, n_cn_single=n_cn_s,
+        num_experts=pipe.cfg.control.moe.num_experts(pipe.cfg.condition_nums),
+        guidance=bb.guidance_embeds, device=dev))
+    want.update(vae=param_count(pipe.vae_params), text_encoder=param_count(pipe.clip_params),
+                text_encoder_2=param_count(pipe.t5_params))
+    gc.collect()
+    torch.cuda.empty_cache()
+    val_argv = ["--ckpt", str(flux_root), "--adapter", str(adapter), "--skip-diffusers",
+                "--res", str(PIPE_RES), "--out", str(root / "validate_flux.json"),
+                "--device", str(dev)]
+    reset_launch_counts()
+    t0 = time.time()
+    report = validate(cli_val, val_argv, root / "validate_flux.json")
+    wall = time.time() - t0
+    launches = nonzero(launch_counts())
+    counts = strict_counts(report)
+    emit(dict(phase="validate_flux", depth=[bb.num_layers, bb.num_single_layers],
+              wall_s=wall, strict_counts=counts, expected_counts=want,
+              quant_fidelity=report["quant_fidelity"], ssim_gate=report["ssim_gate"],
+              diffusers_goldens=report["diffusers_goldens"]))
+    if counts != want or not report["ssim_gate"]["pass"]:
+        raise SystemExit(f"validate_flux: counts {counts} != {want}, or the gate refused "
+                         f"the directory ({report['ssim_gate']})")
+    totals = add_counts((1, launches))
+
+    # 8c's SD3 directory: validated only where its random stream stays finite
+    sargs = mf.parse_args(["--family", "sd3", "--ckpt", str(sd3_root), "--adapter",
+                           str(sd3_root / "adapter"), "--res", str(VALIDATE_SD3_RES),
+                           "--device", str(dev)])
+    s = mf.setup_for(sargs)
+    p = s.make_params("bf16")
+    out = s.forward(p, s.batch)
+    top = out.abs().max().item()
+    del p, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if math.isfinite(top):
+        t0 = time.time()
+        sd3_report = validate(cli_val, [
+            "--ckpt", str(sd3_root), "--family", "sd3", "--adapter", str(sd3_root / "adapter"),
+            "--skip-diffusers", "--res", str(VALIDATE_SD3_RES), "--out",
+            str(root / "validate_sd3.json"), "--device", str(dev)], root / "validate_sd3.json")
+        emit(dict(phase="validate_sd3", bf16_max_abs_out=top, wall_s=time.time() - t0,
+                  strict_load=sd3_report["strict_load"],
+                  quant_fidelity=sd3_report["quant_fidelity"],
+                  ssim_gate=sd3_report["ssim_gate"]))
+    else:
+        emit(dict(phase="validate_sd3", skipped=True, bf16_max_abs_out=top,
+                  reason="the random full-depth SD3.5-medium stream saturates: its bf16 "
+                         "forward is not finite, so a fidelity gate on it measures nothing "
+                         "(its strict load is held by sd3_load_check)"))
+
+    # 11e
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    img = cli_gen.main(gen_argv, pipeline=pipe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nonzero(launch_counts())
+    want = expected_pipeline_launches(pipe.params, pipe.cfg, [(1, STEPS, 0)])
+    diff = generate_check(torch, pipe, gargs)
+    emit(dict(phase="generate", load_s=gen_load_s, steps=STEPS, wall_s=wall,
+              out_shape=list(img.shape), launches=launches, expected_launches=want))
+    emit(dict(phase="generate_check", images=1, max_code_diff=diff))
+    if launches != want or diff or tuple(img.shape) != (cli_gen.RESOLUTION,) * 2 + (3,):
+        raise SystemExit(f"generate: launches {launches} != {want} or {diff} codes")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return add_counts((1, totals), (1, launches))
+
+
+def phase_tools_profiles(torch, dev, params):
+    """11f profile_forward: cli.profile_forward --preset full --quant w4a8
+    --batches 1,2 --res 512 on phase 4's W4A8 flux_full tree: every phase
+    reported at each batch, the full phase's output equal to
+    unigen_flux_forward bit for bit, one full call's launches equal to the
+    formula, one attn call 57 RoPE launches. 11g profile_train: cli.
+    profile_train --preset full --remats TOOLS_REMATS on the same tree: no
+    error row, each policy's first step loss equal to one make_train_step on
+    a fresh state and the same inputs, whose launches equal
+    expected_train_launches. -> the launches of the two CLI runs."""
+    from unigen_tpu_torch import presets
+    from unigen_tpu_torch.cli import profile_forward as cli_pf
+    from unigen_tpu_torch.cli import profile_train as cli_pt
+    from unigen_tpu_torch.config import TrainConfig
+    from unigen_tpu_torch.models.unigen_flux import unigen_flux_forward
+    from unigen_tpu_torch.train import train_step as ts
+
+    cfg = presets.flux_full()
+    bb = cfg.flux
+    batches = (1, 2)
+    reset_launch_counts()
+    t0 = time.time()
+    res = cli_pf.main(["--preset", "full", "--quant", "w4a8", "--batches",
+                       ",".join(map(str, batches)), "--res", str(PIPE_RES), "--device",
+                       str(dev)], params=params)
+    wall = time.time() - t0
+    totals = nonzero(launch_counts())
+    checks, bad = {}, []
+    for entry in res["json"]["sweep"]:
+        missing = [p for p in cli_pf.PHASES if p not in entry["phase_ms"]]
+        if missing:
+            bad.append(f"b={entry['batch']} missing {missing}")
+    for b in batches:
+        x = cli_pf.make_inputs(cfg, b, PIPE_RES, dev)
+        with torch.no_grad():
+            direct = unigen_flux_forward(params, cfg, x["hidden"], x["condition"],
+                                         x["encoder"], x["pooled"], x["cond_pooled"],
+                                         x["timestep"], x["img_ids"], x["txt_ids"],
+                                         x["img_ids"])[0]
+            equal = bool(torch.equal(direct, res["outputs"][b]["full"]))
+            reset_launch_counts()
+            cli_pf.full_phase(params, cfg, x)
+            full = nonzero(launch_counts())
+            reset_launch_counts()
+            cli_pf.attn_phase(params, cfg, x)
+            attn = nonzero(launch_counts())
+        want_full = nonzero(expected_launches(params, cfg, b))
+        n = bb.num_layers + bb.num_single_layers
+        checks[b] = dict(full_equal=equal, full_launches=full,
+                         expected_full_launches=want_full, attn_launches=attn)
+        if not equal:
+            bad.append(f"b={b} full differs from unigen_flux_forward")
+        if full != want_full:
+            bad.append(f"b={b} full launches {full} != {want_full}")
+        if attn != {"flash_attention_rope": n, "rope_rotate": n}:
+            bad.append(f"b={b} attn launches {attn} (want {n} RoPE calls)")
+    emit(dict(phase="profile_forward", wall_s=wall, report=res["json"], checks=checks,
+              launches=totals))
+    if bad:
+        raise SystemExit(f"profile_forward: {bad}")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11g
+    reset_launch_counts()
+    t0 = time.time()
+    prof = cli_pt.main(["--preset", "full", "--remats", TOOLS_REMATS, "--res", str(PIPE_RES),
+                        "--device", str(dev)], params=params)
+    wall = time.time() - t0
+    launches = nonzero(launch_counts())
+    trainable, frozen_arg = cli_pt.split(params, "full")
+    batch, draws, _, _ = cli_pt.make_batch(cfg, "full", 1, PIPE_RES, dev)
+    steps = {}
+    for policy, row in prof["policies"].items():
+        if "error" in row:
+            bad.append(f"{policy}: {row['error']}")
+            continue
+        tcfg = TrainConfig(train_batch_size=1, remat=policy)
+        step = ts.make_train_step(cfg, tcfg)
+        reset_launch_counts()
+        _, m = step(ts.init_train_state(trainable, tcfg), frozen_arg, batch, draws=draws)
+        loss = float(m["step_loss"])
+        got = nonzero(launch_counts())
+        want = nonzero(expected_train_launches(params, cfg, 1, remat=policy))
+        steps[policy] = dict(loss=loss, cli_loss=row["first_step_loss"], launches=got,
+                             expected_launches=want, mfu=row.get("mfu"))
+        if loss != row["first_step_loss"]:
+            bad.append(f"{policy}: step loss {loss} != the CLI's {row['first_step_loss']}")
+        if got != want:
+            bad.append(f"{policy}: launches {got} != {want}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(dict(phase="profile_train", wall_s=wall, report=prof, peak_ops=prof["peak_ops"],
+              mfu={p: r.get("mfu") for p, r in prof["policies"].items()}, steps=steps,
+              launches=launches))
+    if bad:
+        raise SystemExit(f"profile_train: {bad}")
+    return add_counts((1, totals), (1, launches))
+
+
 def shape_counts(records):
     """{"MxKxN": calls} of the W4A8 path-check records."""
     out = {}
@@ -6573,9 +7016,14 @@ def main() -> int:
 
     # 7. the W4A8 FLUX tree at 1024^2
     phase_flux_1024(torch, dev, params)
-    del params
-    torch.cuda.empty_cache()
     done("7 flux_1024")
+
+    # 11f-11g. the profiling tools on the same tree
+    tools = phase_tools_profiles(torch, dev, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("11f-11g tools_profiles")
 
     # 7b. training with the shipped control values: rope-free control
     # attention and block experts, on a tree of its own
@@ -6614,6 +7062,12 @@ def main() -> int:
         entry_launches = phase_entry_points(torch, dev, args.seed, CHECKPOINTS / "entry",
                                             CHECKPOINTS / "sd35_medium", CHECKPOINTS / "flux")
         done("10 entry_points")
+        # 11d-11e. the checkpoint validation and the one-image example on the
+        # same directories
+        tools = add_counts((1, tools), (1, phase_tools_checkpoints(
+            torch, dev, args.seed, CHECKPOINTS / "tools", CHECKPOINTS / "flux",
+            CHECKPOINTS / "sd35_medium")))
+        done("11d-11e tools_checkpoints")
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
@@ -6632,7 +7086,16 @@ def main() -> int:
     finally:
         shutil.rmtree(CHECKPOINTS, ignore_errors=True)
 
-    # 11. kernels line: the dominant main-path shape of each kernel; launches
+    # 11a-11c. cli.measure_fidelity per family on its own random trees
+    try:
+        for family in ("flux", "sd3", "sana"):
+            tools = add_counts((1, tools), (1, fidelity_check(
+                torch, dev, family, FIDELITY_RES[family], CHECKPOINTS / "fidelity")))
+            done(f"11 fidelity_{family}")
+    finally:
+        shutil.rmtree(CHECKPOINTS, ignore_errors=True)
+
+    # 12. kernels line: the dominant main-path shape of each kernel; launches
     # from the main path that runs it (training for the FLUX kernels, with
     # the serving run's beside the forward kernels; SD3 serving for the
     # rope-free forward, with train_blocks' beside it; train_blocks for the
@@ -6694,6 +7157,8 @@ def main() -> int:
             entry["sana_launches"] = sana_launches[name]
         if name in entry_launches:
             entry["entry_points_launches"] = entry_launches[name]
+        if name in tools:
+            entry["tools_launches"] = tools[name]
         if name == "flash_attention":
             entry["sd3_base_forward_launches"] = sd3_base
         if name in ("flash_attention_rope",) + BWD_NAMES:

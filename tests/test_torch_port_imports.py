@@ -1,6 +1,6 @@
 """The port's import rule: every module of ``unigen_tpu_torch`` (the
 entry points and the evaluation towers among them) and ``chip_smoke.py``
-import without JAX and without the JAX package, and
+import without JAX, the JAX package or ``bench.py``, and
 without ``safetensors`` or ``transformers`` (the card host has neither:
 the loaders read safetensors files themselves and import transformers'
 tokenizers only when a checkpoint holds one). Checked in a fresh
@@ -23,7 +23,7 @@ for n in names + ["chip_smoke"]:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "unigen_tpu" or m.startswith("unigen_tpu.")
+             or m == "unigen_tpu" or m.startswith("unigen_tpu.") or m == "bench"
              or m.split(".")[0] in ("safetensors", "transformers"))
 print(len(names), "modules", " ".join(names))
 if bad:
@@ -37,10 +37,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr[-2000:]
     n, _, *imported = out.stdout.split()
     assert int(n) >= 50
-    for name in ("eval", "models.vgg", "models.depth", "cli.infer", "cli.serve", "cli.eval"):
+    for name in ("eval", "models.vgg", "models.depth", "cli.infer", "cli.serve", "cli.eval",
+                 "cli.measure_fidelity", "cli.profile_forward", "cli.profile_train",
+                 "cli.validate_real_ckpt", "cli.generate"):
         assert f"unigen_tpu_torch.{name}" in imported, name
     for name in ("serving_steps", "serving_cache", "torch_bridge", "torch_bridge_sd3",
                  "loading", "sd3", "lora", "checkpoint", "datasets", "sampler", "prefetch",
                  "native", "conditions", "train", "sana", "blocks_sana", "gemma_text",
                  "dcae"):
         assert any(name in p.name for p in (ROOT / "unigen_tpu_torch").rglob("*.py"))
+
+
+def test_port_reads_no_environment_variable():
+    """The port is configured by flags and arguments: no module reads the
+    process environment (the JAX tools' UNIGEN_* variables became flags)."""
+    readers = [str(p.relative_to(ROOT)) for p in (ROOT / "unigen_tpu_torch").rglob("*.py")
+               if any(t in p.read_text() for t in ("os.environ", "os.getenv", "getenv("))]
+    assert readers == []
